@@ -1,0 +1,409 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py          # from the root of a checkout
+
+Phases, in order; any failure raises and exits nonzero:
+  1. environment: torch / CUDA versions and the card's name and power limit;
+  2. build K1 (``src/repro_torch/csrc/grouped_ffn_flat.cu``) with nvcc;
+  3. K1 against its plain PyTorch version on the card, f32 and bf16, all
+     three activations: (a) bm 128, S 3, H 128, F 512, counts [100, 0, 250];
+     (b) the olmoe-1b-7b decode geometry of phase 4 (bm 8, S 64, H 2048,
+     F 1024, the flat buffer the path builds for the serving batch);
+     (c) ragged H and F.  Tolerances: f32 2e-5 at (a) and (c), 1e-4 at (b)
+     (sums 2048 and 1024 long, taken in another order), bf16 2e-2; rows
+     outside every group must be exact zeros.  Times K1 and the plain
+     version at (b);
+  4. serve olmoe-1b-7b at full width and depth (16 layers, 64 experts,
+     f32 weights drawn on the card from a seeded generator) through
+     ``ServingSession``: every request finishes, no overflow, and K1 ran in
+     every MoE layer of every step (launch count = (steps + warm-up) x 16);
+     then the decode step's time split into scheduler, K1 and the rest;
+  5. the whole path on the card against the CPU on paper-gpt-32x1.3b
+     smoke with identical weights: identical tokens per request.
+The last two lines are the kernels' JSON record and the result object.
+"""
+from __future__ import annotations
+
+import copy
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
+H100_F32_FLOPS = 67e12         # f32 outside the tensor cores (K1 uses FMA)
+GOLDEN_ARRIVALS = [(0, 6, 5), (0, 4, 3), (2, 5, 4), (7, 6, 6), (9, 3, 3)]
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+# ------------------------------------------------------------ phase 3: K1
+
+
+def flat_layout(counts, bm: int, n: int, device):
+    counts = torch.as_tensor(counts, dtype=torch.int64)
+    sizes = (counts + bm - 1) // bm * bm
+    start = torch.cumsum(sizes, 0) - sizes
+    require(int(sizes.sum()) <= n, "layout does not fit the buffer")
+    return start.to(device), (start + counts).to(device)
+
+
+def random_weights(g: torch.Generator, s: int, h: int, f: int, device):
+    def rnd(*shape, scale):
+        return torch.randn(shape, generator=g, device=device) * scale
+    return (rnd(s, h, f, scale=h ** -0.5), rnd(s, h, f, scale=h ** -0.5),
+            rnd(s, f, h, scale=f ** -0.5))
+
+
+def check_k1(label, x, start, end, weights, activation, bm, tol) -> float:
+    from repro_torch.kernels import ops, ref
+    out = ops.grouped_ffn_flat(x, start, end, *weights,
+                               activation=activation, bm=bm)
+    torch.cuda.synchronize()
+    expect = ref.grouped_ffn_flat_ref(x, start, end, *weights,
+                                      activation=activation)
+    require(out.shape == x.shape and out.dtype == x.dtype,
+            f"K1 {label}: output {tuple(out.shape)} {out.dtype}")
+    require(bool(torch.isfinite(out.float()).all()),
+            f"K1 {label}: non-finite output")
+    rows = torch.arange(x.shape[0], device=x.device)[None, :]
+    member = ((rows >= start[:, None]) & (rows < end[:, None])).any(0)
+    require(bool((out[~member] == 0).all()),
+            f"K1 {label}: rows outside every group are not exact zeros")
+    err = (out.float() - expect.float()).abs()
+    bad = err > tol + tol * expect.float().abs()
+    require(not bool(bad.any()),
+            f"K1 {label}: max abs err {err.max().item():.3e} beyond "
+            f"rtol=atol={tol}")
+    e = err.max().item()
+    print(f"  K1 {label}: max abs err {e:.3e} (tol {tol}), "
+          f"{int(member.sum())} rows in groups, zeros exact")
+    return e
+
+
+def decode_flat_buffer(g: torch.Generator, cfg, batch: int, device):
+    """The flat buffer, group starts and ends that the serving path builds
+    for one MoE layer of a ``batch``-token decode step of ``cfg``."""
+    from repro_torch.engine import MicroEPEngine
+    from repro_torch.moe import dispatch as D
+    from repro_torch.moe.router import top_k_gating
+    # the single-device group and layout of decoder.local_moe_apply
+    spec = MicroEPEngine.build(cfg.num_experts, (1, 1), device=device
+                               ).moe_spec(batch, cfg.top_k, bm=8)
+    st = spec.statics
+    x = torch.randn((batch, cfg.d_model), generator=g, device=device)
+    router = torch.randn((cfg.d_model, cfg.num_experts), generator=g,
+                         device=device) * cfg.d_model ** -0.5
+    r = top_k_gating(x, router, cfg.top_k)
+    ex = r.expert_ids.reshape(-1)
+    cnt = torch.zeros(cfg.num_experts + 1, dtype=torch.int64,
+                      device=device).scatter_add_(0, ex, torch.ones_like(ex))
+    sched = spec.scheduler(cnt[:cfg.num_experts, None])
+    plan = D.make_plan(st, ex, sched.flow, 0)
+    flat = D.dispatch(st, plan, x.repeat_interleave(cfg.top_k, dim=0))
+    return flat, plan.group_start, plan.group_end
+
+
+def phase_k1(cfg, batch: int, device) -> dict:
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.grouped_matmul import grouped_ffn_flat_cuda
+    g = torch.Generator(device=device)
+    g.manual_seed(1234)
+    acts = ("swiglu", "geglu", "relu_sq")
+    dtypes = (torch.float32, torch.bfloat16)
+
+    # (a) the reference kernel test's shapes
+    start, end = flat_layout([100, 0, 250], 128, 384, device)
+    x = torch.randn((384, 128), generator=g, device=device) * 0.5
+    w = random_weights(g, 3, 128, 512, device)
+    # (c) ragged H and F
+    start_c, end_c = flat_layout([5, 2, 0, 7, 1], 8, 48, device)
+    x_c = torch.randn((48, 200), generator=g, device=device) * 0.5
+    w_c = random_weights(g, 5, 200, 300, device)
+    # (b) the olmoe decode geometry
+    x_b, start_b, end_b = decode_flat_buffer(g, cfg, batch, device)
+    w_b = random_weights(g, cfg.num_experts, cfg.d_model, cfg.moe_d_ff,
+                         device)
+
+    err_b = None
+    for dt in dtypes:
+        bf = dt == torch.bfloat16
+        for act in acts:
+            check_k1(f"(a) {dt} {act}", x.to(dt), start, end,
+                     [t.to(dt) for t in w], act, 128, 2e-2 if bf else 2e-5)
+            check_k1(f"(c) {dt} {act}", x_c.to(dt), start_c, end_c,
+                     [t.to(dt) for t in w_c], act, 8, 2e-2 if bf else 2e-5)
+            e = check_k1(f"(b) {dt} {act}", x_b.to(dt), start_b, end_b,
+                         [t.to(dt) for t in w_b], act, 8,
+                         2e-2 if bf else 1e-4)
+            if not bf and act == "swiglu":
+                err_b = e
+
+    # time K1 and its plain version at (b), f32 swiglu (the served case)
+    from repro_torch.kernels import ops
+    k1_ms = cuda_ms(lambda: ops.grouped_ffn_flat(
+        x_b, start_b, end_b, *w_b, activation="swiglu", bm=8), 20)
+    plain_ms = cuda_ms(lambda: ref.grouped_ffn_flat_ref(
+        x_b, start_b, end_b, *w_b, activation="swiglu"), 3)
+    counts = end_b - start_b
+    n_active = int((counts > 0).sum())
+    rows = int(counts.sum())
+    isz = x_b.element_size()
+    h, f = cfg.d_model, cfg.moe_d_ff
+    # the in-group rows of x read once (rows outside every group are zeros
+    # whatever x holds), every row of out written once, each active
+    # expert's three matrices read once, tile_gid and group_end (int32)
+    nbytes = (rows * h * isz + x_b.shape[0] * h * isz
+              + n_active * 3 * h * f * isz
+              + (x_b.shape[0] // 8 + cfg.num_experts) * 4)
+    flops = 2 * 3 * rows * h * f
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    print(f"  K1 (b) f32 swiglu: {k1_ms:.4f} ms, plain version "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+          f"{n_active} active experts x 3·H·F f32, {rows} rows read, "
+          f"N={x_b.shape[0]} rows written)")
+    grouped_ffn_flat_cuda.launches = 0     # comparison launches do not count
+    return {"name": "grouped_ffn_flat", "route": "cuda",
+            "source": "src/repro_torch/csrc/grouped_ffn_flat.cu",
+            "replaces": "src/repro/kernels/grouped_matmul.py:118",
+            "launches": 0, "max_abs_err": err_b, "ms": k1_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+# ------------------------------------------------------- phase 4: serving
+
+
+def step_split(model, cfg, serve_cfg, device) -> dict:
+    """Wall time of a full decode step, and within the same steps the time
+    of the MoE layers' scheduler calls and K1 calls (each bracketed by
+    device synchronisations, so the split is of host-visible wall time)."""
+    from repro_torch.core.scheduler import Scheduler
+    from repro_torch.kernels import ops
+    from repro_torch.models import decoder as dec
+    g = torch.Generator(device=device)
+    g.manual_seed(7)
+    b = serve_cfg.max_batch
+    state = dec.init_decode_state(cfg, b, serve_cfg.max_seq, device=device)
+    state["solver"] = dec.init_solver_states(cfg, 1, device=device)
+    toks = torch.randint(0, cfg.vocab, (b, 1), generator=g, device=device)
+    batch = {"tokens": toks, "active": torch.ones(b, dtype=torch.bool,
+                                                  device=device)}
+    reps = 3
+
+    def steps():
+        dec.decode_step(model, state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            dec.decode_step(model, state, batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    plain_step_ms = steps()
+    spent = {"scheduler": 0.0, "k1": 0.0}
+
+    def timed(fn, key):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    sched_call, k1_call = Scheduler.__call__, ops.grouped_ffn_flat
+    Scheduler.__call__ = timed(sched_call, "scheduler")
+    ops.grouped_ffn_flat = timed(k1_call, "k1")
+    try:
+        step_ms = steps()
+    finally:
+        Scheduler.__call__, ops.grouped_ffn_flat = sched_call, k1_call
+    # the warm-up step inside steps() is timed too: reps + 1 steps
+    sched_ms = spent["scheduler"] / (reps + 1) * 1e3
+    k1_ms = spent["k1"] / (reps + 1) * 1e3
+    rest = step_ms - sched_ms - k1_ms
+    n_moe = dec.n_moe_layers(cfg)
+    print(f"  decode step {plain_step_ms:.1f} ms; with the split timers "
+          f"{step_ms:.1f} ms = scheduler {sched_ms:.1f} ms ({n_moe} "
+          f"layers) + K1 {k1_ms:.2f} ms ({n_moe} calls) + rest "
+          f"{rest:.1f} ms")
+    return {"step_ms": plain_step_ms, "timed_step_ms": step_ms,
+            "scheduler_ms": sched_ms, "k1_ms": k1_ms, "rest_ms": rest}
+
+
+def phase_serve(cfg, serve_cfg, device) -> int:
+    from repro_torch.kernels.grouped_matmul import grouped_ffn_flat_cuda
+    from repro_torch.models import decoder as dec
+    from repro_torch.serve import ServingSession, poisson_trace
+    t0 = time.perf_counter()
+    model = dec.init_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_experts} experts top-{cfg.top_k}, {n_params / 1e9:.3f} B "
+          f"f32 params initialised on the card in "
+          f"{time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated)")
+    requests = poisson_trace(4, rate=0.5, vocab=cfg.vocab, prompt_len=8,
+                             gen_len=8, seed=1)
+    sess = ServingSession(cfg, serve_cfg, device=device, model=model)
+
+    grouped_ffn_flat_cuda.launches = 0          # just before the main path
+    rep = sess.run(requests)
+    launches = grouped_ffn_flat_cuda.launches   # just after it
+    for line in rep.summary().splitlines():
+        print("  " + line)
+    n_moe = dec.n_moe_layers(cfg)
+    expect = (rep.decode_steps + 1) * n_moe     # + the warm-up step
+    print(f"  {rep.decode_steps} decode steps + 1 warm-up, K1 launches "
+          f"{launches} (expected {expect})")
+    require(len(rep.records) == len(requests) and rep.rejected == 0,
+            f"served {len(rep.records)} of {len(requests)} requests")
+    require(all(r.n_generated == q.max_new
+                for r, q in zip(rep.records, requests)),
+            "a request finished short of its generation budget")
+    require(rep.overflow == 0.0, f"overflow {rep.overflow}")
+    require(launches == expect,
+            f"K1 launched {launches} times, expected {expect}")
+    step_split(model, cfg, serve_cfg, device)
+    return launches
+
+
+# ------------------------------------------------- phase 5: card vs CPU
+
+
+def phase_parity(cfg, device) -> None:
+    from repro_torch.engine import ServeConfig
+    from repro_torch.kernels.grouped_matmul import grouped_ffn_flat_cuda
+    from repro_torch.models import decoder as dec
+    from repro_torch.serve import ServingSession, replay_trace
+    cpu_model = dec.init_params(cfg, seed=0, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    sc = ServeConfig(max_batch=3, max_seq=24)
+
+    state = dec.init_decode_state(cfg, 3, 24, device="cpu")
+    state["solver"] = dec.init_solver_states(cfg, 1, device="cpu")
+    toks = torch.tensor([[5], [77], [301]])
+    logits_cpu, _ = dec.decode_step(cpu_model, state, {"tokens": toks})
+    gstate = {"pos": state["pos"].to(device),
+              "kv": [c._replace(k=c.k.to(device), v=c.v.to(device),
+                                length=c.length.to(device))
+                     for c in state["kv"]],
+              "solver": [s._replace(x=s.x.to(device))
+                         for s in state["solver"]]}
+    logits_gpu, _ = dec.decode_step(gpu_model, gstate,
+                                    {"tokens": toks.to(device)})
+    require(logits_gpu.shape == (3, 1, cfg.vocab)
+            and bool(torch.isfinite(logits_gpu).all()),
+            "card logits are not finite values of shape [3, 1, V]")
+    diff = (logits_gpu.cpu() - logits_cpu).abs().max().item()
+    print(f"  one decode step: card vs CPU logits max abs diff {diff:.3e}")
+    require(diff < 1e-4, f"card and CPU logits differ by {diff:.3e}")
+
+    before = grouped_ffn_flat_cuda.launches
+    reps = {}
+    for name, dev, model in (("card", device, gpu_model),
+                             ("cpu", "cpu", cpu_model)):
+        reqs = replay_trace(GOLDEN_ARRIVALS, vocab=cfg.vocab, seed=11)
+        reps[name] = ServingSession(cfg, sc, device=dev,
+                                    model=model).run(reqs)
+    require(grouped_ffn_flat_cuda.launches > before,
+            "the card run did not go through K1")
+    tok_gpu = [r.tokens for r in reps["card"].records]
+    tok_cpu = [r.tokens for r in reps["cpu"].records]
+    print(f"  {cfg.name}: {len(tok_gpu)} requests, "
+          f"{sum(map(len, tok_gpu))} tokens on the card, identical to the "
+          f"CPU: {tok_gpu == tok_cpu}")
+    require(tok_gpu == tok_cpu, f"card tokens {tok_gpu} != CPU {tok_cpu}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke run needs the card",
+              file=sys.stderr)
+        return 2
+    from repro_torch.configs import get_config
+    from repro_torch.engine import ServeConfig
+    from repro_torch.kernels import grouped_matmul
+
+    # 1. environment
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    device = torch.device("cuda", 0)
+    print(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}; TF32 off")
+    print(card)
+    t_all = time.perf_counter()
+
+    # 2. build
+    t0 = time.perf_counter()
+    lib = grouped_matmul.build()
+    print(f"[2] built {lib.relative_to(ROOT)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    olmoe = get_config("olmoe-1b-7b")
+    serve_cfg = ServeConfig(max_batch=4, max_seq=16)
+    print("[3] K1 against its plain version")
+    record = phase_k1(olmoe, serve_cfg.max_batch, device)
+    torch.cuda.empty_cache()
+
+    print("[4] serve olmoe-1b-7b, full width and depth")
+    record["launches"] = phase_serve(olmoe, serve_cfg, device)
+    torch.cuda.empty_cache()
+
+    print("[5] card vs CPU through the whole path")
+    phase_parity(get_config("paper-gpt-32x1.3b").smoke(), device)
+    print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
+
+    print(card)
+    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,52 @@
+"""Public entry points of the kernels (twin of ``repro.kernels.ops``).
+
+The tensor's device picks the implementation, never a fallback: a CUDA
+tensor launches the hand-written kernel (which raises if it cannot build or
+launch), a CPU tensor runs the plain PyTorch version in ``ref``.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from .grouped_matmul import grouped_ffn_flat_cuda
+
+__all__ = ["grouped_ffn_flat", "tile_group_ids"]
+
+
+def tile_group_ids(group_start: torch.Tensor, n: int, bm: int,
+                   num_groups: int) -> torch.Tensor:
+    """int32[n // bm] group owning each bm-row tile: the last group whose
+    (bm-aligned) start is at or before the tile's first row."""
+    starts = group_start.to(torch.int64)
+    tiles = torch.arange(n // bm, dtype=torch.int64,
+                         device=group_start.device) * bm
+    gid = torch.searchsorted(starts, tiles, right=True) - 1
+    return torch.clamp(gid, 0, num_groups - 1).to(torch.int32)
+
+
+def grouped_ffn_flat(
+    x: torch.Tensor,            # [N, H], N a multiple of bm, sorted by group
+    group_start: torch.Tensor,  # int[S], bm-aligned
+    group_end: torch.Tensor,    # int[S]
+    w_gate: torch.Tensor,
+    w_up: torch.Tensor,
+    w_down: torch.Tensor,
+    activation: str = "swiglu",
+    bm: int = 128,
+) -> torch.Tensor:
+    """Ragged grouped gated FFN in the dispatcher's flat layout.
+
+    ``bm`` must be the row-tile alignment the buffer was laid out with
+    (``DispatchStatics.bm``): the kernel assigns each bm-row tile to one
+    group, so a larger bm would zero later groups sharing a tile."""
+    n = x.shape[0]
+    if n % bm:
+        raise ValueError(f"flat buffer of {n} rows is not a multiple of "
+                         f"bm={bm}")
+    if x.device.type == "cpu":
+        return ref.grouped_ffn_flat_ref(x, group_start, group_end, w_gate,
+                                        w_up, w_down, activation)
+    tile_gid = tile_group_ids(group_start, n, bm, w_gate.shape[0])
+    return grouped_ffn_flat_cuda(x, tile_gid, group_end.to(torch.int32),
+                                 w_gate, w_up, w_down, activation, bm)

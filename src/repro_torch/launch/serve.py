@@ -1,0 +1,86 @@
+"""Serving entry point on one device (twin of ``repro.launch.serve``, co-located
+and single-device): Poisson or replay traffic feeds the slot/KV-budget batch
+manager; one decode step per tick interleaves prefill and decode and re-runs
+the MicroEP scheduler in every MoE layer on the live batch's expert loads.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+      --requests 4 --prompt-len 8 --gen 8 --max-batch 4
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch paper-gpt-32x1.3b --smoke --device cpu
+
+Runs on the CUDA device unless ``--device cpu`` is given; weights are f32,
+random from ``--seed``, drawn on the device.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+
+import torch
+
+from ..configs import get_config
+from ..engine import ServeConfig
+from ..serve import ServingSession, poisson_trace, replay_trace
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (default cuda)")
+    ap.add_argument("--traffic", default="poisson",
+                    choices=["poisson", "replay"])
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--rate", type=float, default=0.25,
+                    help="poisson arrival rate (requests per decode step)")
+    ap.add_argument("--prompt-len", type=int, default=12,
+                    help="max prompt length (sampled uniform in [len/2, len])")
+    ap.add_argument("--gen", type=int, default=16,
+                    help="max generation length (sampled like --prompt-len)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--json", action="store_true",
+                    help="print the full ServeReport as JSON")
+    ServeConfig.add_cli_args(ap)
+    args = ap.parse_args(argv)
+    serve_cfg = ServeConfig.from_cli_args(args)
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    # grow the default cache to fit the requested lengths, but never
+    # override an explicit --max-seq / --kv-budget
+    if (serve_cfg.max_seq == ServeConfig().max_seq
+            and serve_cfg.kv_budget is None
+            and serve_cfg.max_seq < args.prompt_len + args.gen):
+        serve_cfg = dataclasses.replace(
+            serve_cfg, max_seq=args.prompt_len + args.gen)
+        print(f"note: default --max-seq grown to {serve_cfg.max_seq} to fit "
+              f"--prompt-len {args.prompt_len} + --gen {args.gen}")
+
+    if args.traffic == "replay":
+        every = max(int(round(1.0 / args.rate)), 1)
+        requests = replay_trace(
+            [(i * every, args.prompt_len, args.gen)
+             for i in range(args.requests)], cfg.vocab, seed=args.seed + 1)
+    else:
+        requests = poisson_trace(
+            args.requests, args.rate, cfg.vocab,
+            prompt_len=args.prompt_len, gen_len=args.gen,
+            seed=args.seed + 1)
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    sess = ServingSession(cfg, serve_cfg, seed=args.seed, device=args.device)
+    report = sess.run(requests)
+    print(f"arch={cfg.name} device={sess.device} "
+          f"slots={serve_cfg.max_batch} max_seq={serve_cfg.max_seq} "
+          f"kv_budget={serve_cfg.budget_tokens} traffic={args.traffic}")
+    print(report.summary())
+    if args.json:
+        print(json.dumps(report.to_dict(), indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,110 @@
+"""The port's plain K1 (``repro_torch.kernels``) against the JAX reference:
+the same numpy inputs, made from a seed, go through both.  The CUDA kernel
+itself runs only on the card (``chip_smoke.py``, ``test_torch_gpu.py``)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops, ref
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.grouped_matmul import grouped_ffn_flat_cuda
+
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def _flat_case(seed, bm, counts, h, f):
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(counts, np.int32)
+    sizes_pad = (counts + bm - 1) // bm * bm
+    start = (np.cumsum(sizes_pad) - sizes_pad).astype(np.int32)
+    end = (start + counts).astype(np.int32)
+    n = int(sizes_pad.sum()) + bm        # one trailing padding tile
+    s = len(counts)
+    x = (rng.standard_normal((n, h)) * 0.5).astype(np.float32)
+    wg = (rng.standard_normal((s, h, f)) * h ** -0.5).astype(np.float32)
+    wu = (rng.standard_normal((s, h, f)) * h ** -0.5).astype(np.float32)
+    wd = (rng.standard_normal((s, f, h)) * f ** -0.5).astype(np.float32)
+    return x, start, end, wg, wu, wd
+
+
+def _bf16(a):
+    """Round f32 numpy to bf16 and back, so both frameworks see the same
+    bf16 values."""
+    return np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "relu_sq"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_k1_matches_reference(dtype, activation):
+    """The kernels' reference shapes: bm 128, S 3, H 128, F 512."""
+    x, start, end, wg, wu, wd = _flat_case(1, 128, [100, 0, 250], 128, 512)
+    if dtype == "bfloat16":
+        x, wg, wu, wd = map(_bf16, (x, wg, wu, wd))
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    expect = ref.grouped_ffn_flat_ref(
+        jnp.asarray(x, jdt), jnp.asarray(start), jnp.asarray(end),
+        *(jnp.asarray(a, jdt) for a in (wg, wu, wd)), activation)
+    got = tops.grouped_ffn_flat(
+        torch.tensor(x, dtype=tdt), torch.tensor(start), torch.tensor(end),
+        *(torch.tensor(a, dtype=tdt) for a in (wg, wu, wd)),
+        activation=activation, bm=128)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(expect, np.float32), **tol)
+
+
+def test_plain_k1_matches_pallas_interpret_bm8():
+    """The decode layout (bm=8, empty groups, ragged H and F) against the
+    Pallas kernel in interpret mode tiled at the same bm."""
+    x, start, end, wg, wu, wd = _flat_case(2, 8, [3, 0, 9, 1, 0, 4], 64, 256)
+    expect = ops.grouped_ffn_flat(
+        jnp.asarray(x), jnp.asarray(start), jnp.asarray(end),
+        jnp.asarray(wg), jnp.asarray(wu), jnp.asarray(wd),
+        impl="interpret", bm=8, bf=128)
+    got = tops.grouped_ffn_flat(
+        *(torch.tensor(a) for a in (x, start, end, wg, wu, wd)), bm=8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(expect), **F32_TOL)
+
+
+def test_plain_k1_empty_groups_exact_zeros():
+    x, start, end, wg, wu, wd = _flat_case(3, 8, [0, 5, 0, 0, 2], 32, 48)
+    out = tref.grouped_ffn_flat_ref(
+        *(torch.tensor(a) for a in (x, start, end, wg, wu, wd))).numpy()
+    member = np.zeros(len(x), bool)
+    for a, b in zip(start, end):
+        member[a:b] = True
+    assert (out[~member] == 0.0).all()
+    assert (np.abs(out[member]).max(axis=1) > 0).all()
+
+
+@pytest.mark.parametrize("bm,counts", [(8, [3, 0, 9, 1, 0, 4]),
+                                       (128, [100, 0, 250]),
+                                       (8, [0, 0, 7, 0])])
+def test_tile_gid_matches_reference(bm, counts):
+    _, start, _, _, _, _ = _flat_case(0, bm, counts, 8, 8)
+    n = int(((np.asarray(counts) + bm - 1) // bm * bm).sum()) + bm
+    s = len(counts)
+    # the reference derivation (repro/kernels/ops.py, _flat_padded)
+    tiles = jnp.arange(n // bm, dtype=jnp.int32) * bm
+    expect = jnp.clip(jnp.searchsorted(jnp.asarray(start), tiles,
+                                       side="right") - 1, 0, s - 1)
+    got = tops.tile_group_ids(torch.tensor(start), n, bm, s)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(expect))
+
+
+def test_k1_rejects_cpu_tensors_and_bad_bm():
+    """A CPU tensor never reaches the CUDA wrapper silently, and a buffer
+    that is not a multiple of bm is refused before any kernel work."""
+    x, start, end, wg, wu, wd = _flat_case(4, 8, [3, 5], 16, 16)
+    t = [torch.tensor(a) for a in (x, start, end, wg, wu, wd)]
+    with pytest.raises(ValueError, match="CUDA"):
+        grouped_ffn_flat_cuda(t[0], tops.tile_group_ids(t[1], len(x), 8, 2),
+                              t[2].int(), *t[3:], bm=8)
+    assert len(x) == 24
+    with pytest.raises(ValueError, match="multiple of bm"):
+        tops.grouped_ffn_flat(*t, bm=16)

@@ -1,0 +1,73 @@
+"""The port's serving loop (``repro_torch.serve``) against the reference
+``ServingSession``: the golden arrivals, served with the same weights, give
+identical per-request tokens, and the port's canonical report equals the
+golden co-located fixture."""
+import dataclasses
+import json
+import pathlib
+
+import jax
+import numpy as np
+import pytest
+
+from repro.configs import get_config
+from repro.engine import ServeConfig
+from repro.serve import ServingSession, poisson_trace, replay_trace
+from repro_torch.configs.base import ArchConfig as TorchArchConfig
+from repro_torch.engine import ServeConfig as TorchServeConfig
+from repro_torch.models.decoder import load_reference_params
+from repro_torch.serve import ServingSession as TorchServingSession
+from repro_torch.serve import poisson_trace as torch_poisson_trace
+from repro_torch.serve import replay_trace as torch_replay_trace
+
+GOLDEN = pathlib.Path(__file__).parent / "golden" / \
+    "serve_report_colocated.json"
+_GOLDEN_ARRIVALS = [(0, 6, 5), (0, 4, 3), (2, 5, 4), (7, 6, 6), (9, 3, 3)]
+
+
+def _canonical(d: dict) -> dict:
+    """A report dict minus every wall-clock-derived field."""
+    d = dict(d)
+    for k in ("wall_s", "gen_tokens_per_s", "tokens_per_s", "latency_ms",
+              "ttft_ms"):
+        d.pop(k)
+    d["per_request"] = [{k: v for k, v in r.items()
+                         if k not in ("latency_ms", "ttft_ms")}
+                        for r in d["per_request"]]
+    return d
+
+
+@pytest.mark.parametrize("vocab", [512, 50304])
+def test_traffic_generators_match_reference(vocab):
+    for a, b in ((poisson_trace(6, 0.5, vocab, prompt_len=7, gen_len=5,
+                                seed=4),
+                  torch_poisson_trace(6, 0.5, vocab, prompt_len=7,
+                                      gen_len=5, seed=4)),
+                 (replay_trace(_GOLDEN_ARRIVALS, vocab, seed=11),
+                  torch_replay_trace(_GOLDEN_ARRIVALS, vocab, seed=11))):
+        assert [(r.req_id, r.arrival_step, r.max_new) for r in a] == \
+            [(r.req_id, r.arrival_step, r.max_new) for r in b]
+        for ra, rb in zip(a, b):
+            np.testing.assert_array_equal(ra.prompt, rb.prompt)
+
+
+def test_golden_serving_tokens_and_report_match_reference():
+    ref_cfg = get_config("paper-gpt-32x1.3b").smoke()
+    cfg = TorchArchConfig(**dataclasses.asdict(ref_cfg))
+    ref_sess = ServingSession(ref_cfg, ServeConfig(max_batch=3, max_seq=24),
+                              seed=0)
+    ref_rep = ref_sess.run(replay_trace(_GOLDEN_ARRIVALS,
+                                        vocab=ref_cfg.vocab, seed=11))
+    model = load_reference_params(
+        jax.tree_util.tree_map(np.asarray, ref_sess.params), cfg,
+        device="cpu")
+    sess = TorchServingSession(cfg, TorchServeConfig(max_batch=3, max_seq=24),
+                               device="cpu", model=model)
+    rep = sess.run(torch_replay_trace(_GOLDEN_ARRIVALS, vocab=cfg.vocab,
+                                      seed=11))
+    assert [r.tokens for r in rep.records] == \
+        [r.tokens for r in ref_rep.records]
+    assert 0 < rep.decode_steps <= rep.steps and rep.overflow == 0.0
+    golden = json.loads(GOLDEN.read_text())["moe"]
+    got = json.loads(json.dumps(_canonical(rep.to_dict()), sort_keys=True))
+    assert got == golden
