@@ -5,7 +5,9 @@
 
 Phases, in order; any failure raises and exits nonzero:
   1. environment: torch / CUDA versions and the card's name and power limit;
-  2. build K1 (``src/repro_torch/csrc/grouped_ffn_flat.cu``) with nvcc;
+     TF32 off for matrix products and convolutions (full f32 products);
+  2. build K1/K2 (``src/repro_torch/csrc/grouped_ffn_flat.cu``) and K3
+     (``src/repro_torch/csrc/wkv6.cu``) with nvcc, both started together;
   3. K1 against its plain PyTorch version on the card, f32 and bf16, all
      three activations: (a) bm 128, S 3, H 128, F 512, counts [100, 0, 250];
      (b) the olmoe-1b-7b decode geometry of phase 4 (bm 8, S 64, H 2048,
@@ -20,7 +22,26 @@ Phases, in order; any failure raises and exits nonzero:
      every MoE layer of every step (launch count = (steps + warm-up) x 16);
      then the decode step's time split into scheduler, K1 and the rest;
   5. the whole path on the card against the CPU on paper-gpt-32x1.3b
-     smoke with identical weights: identical tokens per request.
+     smoke with identical weights: identical tokens per request;
+  6. K2 (the slot-layout grouped FFN, entry point ``ops.grouped_ffn``)
+     against its plain version, f32 (2e-5) and bf16 (2e-2), all three
+     activations: the reference kernel test's shapes, a zero-count slot,
+     and the olmoe-1b-7b decode geometry in the slot layout (S 64, C 8,
+     bm 8, H 2048, F 1024, 32 routed rows); rows at or past each count must
+     be exact zeros.  No model reaches K2: its path is its entry point,
+     driven in the timed run at the decode geometry;
+  7. K3 (the RWKV-6 recurrence, entry point ``ops.wkv6``) against its plain
+     version, f32 (1e-4) and bf16 (5e-2), (BH, T, D) in (2, 128, 64),
+     (1, 256, 128), (4, 128, 128), (1, 100, 64) and the forward's geometry
+     (256, 2048, 64); times K3 and the plain version there;
+  8. rwkv6-7b at full width and depth (32 layers, d_model 4096, 64 heads,
+     f32 weights drawn on the card from a seeded generator) through
+     ``make_forward_fn``: serving prefill (``last_only``) of 4 × 2048
+     tokens, then an evaluation job (full logits and ``lm_loss`` with
+     next-token labels) on the same batch; K3 launched 32 times a forward;
+     wall time per forward, the loss and the peak device memory;
+  9. the forward on the card against the CPU on rwkv6-7b smoke with
+     identical weights and tokens: logits within 1e-4.
 The last two lines are the kernels' JSON record and the result object.
 """
 from __future__ import annotations
@@ -31,6 +52,7 @@ import pathlib
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -38,7 +60,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
-H100_F32_FLOPS = 67e12         # f32 outside the tensor cores (K1 uses FMA)
+H100_F32_FLOPS = 67e12         # f32 outside the tensor cores (K1, K3 use FMA)
 GOLDEN_ARRIVALS = [(0, 6, 5), (0, 4, 3), (2, 5, 4), (7, 6, 6), (9, 3, 3)]
 
 
@@ -73,6 +95,25 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def k_bound(nbytes: float, flops: float):
+    """(bound in ms, what bounds it) against the card's data-sheet peaks."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_close(label, out, expect, tol) -> float:
+    require(out.shape == expect.shape and out.dtype == expect.dtype,
+            f"{label}: output {tuple(out.shape)} {out.dtype}")
+    require(bool(torch.isfinite(out.float()).all()),
+            f"{label}: non-finite output")
+    err = (out.float() - expect.float()).abs()
+    require(not bool((err > tol + tol * expect.float().abs()).any()),
+            f"{label}: max abs err {err.max().item():.3e} beyond "
+            f"rtol=atol={tol}")
+    return err.max().item()
+
+
 # ------------------------------------------------------------ phase 3: K1
 
 
@@ -98,20 +139,11 @@ def check_k1(label, x, start, end, weights, activation, bm, tol) -> float:
     torch.cuda.synchronize()
     expect = ref.grouped_ffn_flat_ref(x, start, end, *weights,
                                       activation=activation)
-    require(out.shape == x.shape and out.dtype == x.dtype,
-            f"K1 {label}: output {tuple(out.shape)} {out.dtype}")
-    require(bool(torch.isfinite(out.float()).all()),
-            f"K1 {label}: non-finite output")
+    e = check_close(f"K1 {label}", out, expect, tol)
     rows = torch.arange(x.shape[0], device=x.device)[None, :]
     member = ((rows >= start[:, None]) & (rows < end[:, None])).any(0)
     require(bool((out[~member] == 0).all()),
             f"K1 {label}: rows outside every group are not exact zeros")
-    err = (out.float() - expect.float()).abs()
-    bad = err > tol + tol * expect.float().abs()
-    require(not bool(bad.any()),
-            f"K1 {label}: max abs err {err.max().item():.3e} beyond "
-            f"rtol=atol={tol}")
-    e = err.max().item()
     print(f"  K1 {label}: max abs err {e:.3e} (tol {tol}), "
           f"{int(member.sum())} rows in groups, zeros exact")
     return e
@@ -192,12 +224,9 @@ def phase_k1(cfg, batch: int, device) -> dict:
     nbytes = (rows * h * isz + x_b.shape[0] * h * isz
               + n_active * 3 * h * f * isz
               + (x_b.shape[0] // 8 + cfg.num_experts) * 4)
-    flops = 2 * 3 * rows * h * f
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
-    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_ms, bound_by = k_bound(nbytes, 2 * 3 * rows * h * f)
     print(f"  K1 (b) f32 swiglu: {k1_ms:.4f} ms, plain version "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
           f"{n_active} active experts x 3·H·F f32, {rows} rows read, "
           f"N={x_b.shape[0]} rows written)")
     grouped_ffn_flat_cuda.launches = 0     # comparison launches do not count
@@ -206,8 +235,7 @@ def phase_k1(cfg, batch: int, device) -> dict:
             "replaces": "src/repro/kernels/grouped_matmul.py:118",
             "launches": 0, "max_abs_err": err_b, "ms": k1_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "bound_by": bound_by, "library_ms": None}
 
 
 # ------------------------------------------------------- phase 4: serving
@@ -307,6 +335,7 @@ def phase_serve(cfg, serve_cfg, device) -> int:
     require(launches == expect,
             f"K1 launched {launches} times, expected {expect}")
     step_split(model, cfg, serve_cfg, device)
+    del sess, model   # frees the 27 GB model before the later phases
     return launches
 
 
@@ -358,6 +387,257 @@ def phase_parity(cfg, device) -> None:
     require(tok_gpu == tok_cpu, f"card tokens {tok_gpu} != CPU {tok_cpu}")
 
 
+# ------------------------------------------------------------ phase 6: K2
+
+
+def decode_slot_counts(g: torch.Generator, cfg, batch: int, device):
+    """Rows per expert slot of one olmoe decode step in the slot layout:
+    ``batch`` tokens each routed to ``top_k`` distinct experts."""
+    ex = torch.cat([torch.randperm(cfg.num_experts, generator=g,
+                                   device=device)[:cfg.top_k]
+                    for _ in range(batch)])
+    return torch.zeros(cfg.num_experts, dtype=torch.int64,
+                       device=device).scatter_add_(0, ex, torch.ones_like(ex))
+
+
+def phase_k2(cfg, batch: int, device) -> dict:
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.grouped_matmul import grouped_ffn_cuda
+    g = torch.Generator(device=device)
+    g.manual_seed(4321)
+    cases = []
+    # (a) the reference kernel test's shapes, counts drawn in [0, C]
+    for s, c, h, f in ((1, 128, 128, 512), (2, 256, 128, 512),
+                       (4, 128, 256, 1024), (3, 384, 128, 512)):
+        counts = torch.randint(0, c + 1, (s,), generator=g, device=device)
+        cases.append((f"(a) S{s} C{c} H{h} F{f}", s, c, h, f, counts, 128))
+    # (z) zero-count slots
+    cases.append(("(z) counts [0, 64, 0]", 3, 128, 128, 512,
+                  torch.tensor([0, 64, 0], device=device), 128))
+    # (d) the olmoe decode geometry in the slot layout
+    cnt_d = decode_slot_counts(g, cfg, batch, device)
+    s_d, c_d, h_d, f_d = cfg.num_experts, 8, cfg.d_model, cfg.moe_d_ff
+    cases.append((f"(d) olmoe decode S{s_d} C{c_d}", s_d, c_d, h_d, f_d,
+                  cnt_d, 8))
+
+    err_d, x_d, w_d = None, None, None
+    for label, s, c, h, f, counts, bm in cases:
+        x = torch.randn((s, c, h), generator=g, device=device) * 0.5
+        w = random_weights(g, s, h, f, device)
+        valid = torch.arange(c, device=device)[None, :] < counts[:, None]
+        for dt in (torch.float32, torch.bfloat16):
+            bf = dt == torch.bfloat16
+            xt, wt = x.to(dt), [t.to(dt) for t in w]
+            for act in ("swiglu", "geglu", "relu_sq"):
+                out = ops.grouped_ffn(xt, counts, *wt, activation=act, bm=bm)
+                torch.cuda.synchronize()
+                expect = ref.grouped_ffn_ref(xt, counts, *wt, activation=act)
+                e = check_close(f"K2 {label} {dt} {act}", out, expect,
+                                2e-2 if bf else 2e-5)
+                require(bool((out[~valid] == 0).all()),
+                        f"K2 {label} {dt} {act}: rows past the counts are "
+                        f"not exact zeros")
+                if label.startswith("(d)") and not bf and act == "swiglu":
+                    err_d, x_d, w_d = e, xt, wt
+        shown = counts.tolist() if s <= 4 else f"{int(counts.sum())} rows"
+        print(f"  K2 {label}: counts {shown}, f32/bf16 x 3 activations "
+              f"within tolerance, zeros exact")
+
+    # K2's path: its entry point (no model reaches it), in the timed run
+    grouped_ffn_cuda.launches = 0
+    k2_ms = cuda_ms(lambda: ops.grouped_ffn(x_d, cnt_d, *w_d, bm=8), 20)
+    launches = grouped_ffn_cuda.launches
+    require(launches == 21, f"K2 launched {launches} times in its timed "
+                            f"run of 21 calls")
+    plain_ms = cuda_ms(lambda: ref.grouped_ffn_ref(x_d, cnt_d, *w_d), 3)
+    rows, n_active = int(cnt_d.sum()), int((cnt_d > 0).sum())
+    isz = x_d.element_size()
+    # the valid rows of x read once, every row of out written once, each
+    # active slot's three matrices read once, the counts
+    nbytes = (rows * h_d * isz + s_d * c_d * h_d * isz
+              + n_active * 3 * h_d * f_d * isz
+              + s_d * cnt_d.element_size())
+    bound_ms, bound_by = k_bound(nbytes, 2 * 3 * rows * h_d * f_d)
+    print(f"  K2 (d) f32 swiglu: {k2_ms:.4f} ms, plain version "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{n_active} active slots x 3·H·F f32, {rows} rows read, "
+          f"S·C={s_d * c_d} rows written); {launches} launches through "
+          f"ops.grouped_ffn")
+    return {"name": "grouped_ffn", "route": "cuda",
+            "source": "src/repro_torch/csrc/grouped_ffn_flat.cu",
+            "replaces": "src/repro/kernels/grouped_matmul.py:163",
+            "launches": launches, "max_abs_err": err_d, "ms": k2_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+# ------------------------------------------------------------ phase 7: K3
+
+
+def wkv6_inputs(g: torch.Generator, bh: int, t: int, d: int, device,
+                model_decay: bool = False):
+    """q, k, v, lw, u as the reference kernel test draws them: log-decays
+    <= 0, strong and weak decay mixed.  ``model_decay`` draws the log-decays
+    from rwkv6-7b's own range instead (decay base -5: w near 0.993, a memory
+    of ~150 steps), where the f32 state grows largest."""
+    q, k, v = (torch.randn((bh, t, d), generator=g, device=device) * 0.5
+               for _ in range(3))
+    z = torch.randn((bh, t, d), generator=g, device=device)
+    lw = -torch.exp(z * 0.5 - 5 if model_decay else z - 1)
+    u = torch.randn((bh, d), generator=g, device=device) * 0.5
+    return q, k, v, lw, u
+
+
+def phase_k3(fwd_geom, device) -> dict:
+    """``fwd_geom``: K3's (BH, T, D) in the forward of phase 8."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.wkv6_chunk import wkv6_cuda
+    g = torch.Generator(device=device)
+    g.manual_seed(99)
+    errs_f, inputs_f = [], None
+    for bh, t, d, model_decay in ((2, 128, 64, False), (1, 256, 128, False),
+                                  (4, 128, 128, False), (1, 100, 64, False),
+                                  (*fwd_geom, False), (*fwd_geom, True)):
+        x = wkv6_inputs(g, bh, t, d, device, model_decay)
+        errs = []
+        for dt in (torch.float32, torch.bfloat16):
+            xt = [a.to(dt) for a in x]
+            out = ops.wkv6(*xt)
+            torch.cuda.synchronize()
+            expect = ref.wkv6_chunk_ref(*xt[:3], torch.exp(xt[3].float()),
+                                        xt[4])[0]
+            errs.append(check_close(f"K3 ({bh}, {t}, {d}) {dt}", out, expect,
+                                    5e-2 if dt == torch.bfloat16 else 1e-4))
+        if (bh, t, d) == fwd_geom:
+            errs_f.append(errs[0])
+            if inputs_f is None:        # timed on the first of the two
+                inputs_f = x
+        print(f"  K3 (BH {bh}, T {t}, D {d}"
+              f"{', model decays' if model_decay else ''}): max abs err f32 "
+              f"{errs[0]:.3e} (rtol = atol = 1e-4), bf16 {errs[1]:.3e} "
+              f"(rtol = atol = 5e-2)")
+
+    k3_ms = cuda_ms(lambda: ops.wkv6(*inputs_f), 20)
+    q, k, v, lw, u = inputs_f
+    plain_ms = cuda_ms(lambda: ref.wkv6_chunk_ref(q, k, v, torch.exp(lw), u),
+                       2)
+    bh, t, d = fwd_geom
+    # q, k, v, lw read once, o written once, u read once.  Operations per
+    # step and row: 2·D² for q·S, 3·D² for w·S + k·vᵀ, and 6·D for w =
+    # exp(lw), the bonus Σ q·u·k and its product with v
+    nbytes = (5 * bh * t * d + bh * d) * q.element_size()
+    flops = (5 * d * d + 6 * d) * t * bh
+    bound_ms, bound_by = k_bound(nbytes, flops)
+    print(f"  K3 {fwd_geom} f32: {k3_ms:.4f} ms, plain version "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{nbytes / 1e6:.0f} MB moved, {flops / 1e9:.2f} GFLOP)")
+    wkv6_cuda.launches = 0     # comparison launches do not count
+    return {"name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/wkv6_chunk.py:93",
+            "launches": 0, "max_abs_err": max(errs_f), "ms": k3_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+# ---------------------------------------------- phase 8: rwkv6-7b forward
+
+
+def phase_forward(cfg, batch: int, seq: int, device) -> int:
+    from repro_torch.kernels.wkv6_chunk import wkv6_cuda
+    from repro_torch.launch.runtime import make_forward_fn
+    from repro_torch.models import decoder as dec
+    t0 = time.perf_counter()
+    model = dec.init_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads x {cfg.d_model // cfg.num_heads}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {n_params / 1e9:.3f} B f32 params "
+          f"initialised on the card in {time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated)")
+    g = torch.Generator(device=device)
+    g.manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=g,
+                           device=device)
+    labels = torch.cat([tokens[:, 1:], torch.full((batch, 1), -1,
+                                                  device=device)], dim=1)
+    prefill = make_forward_fn(model, last_only=True)
+    evaluate = make_forward_fn(model, last_only=False)
+    prefill({"tokens": tokens})                 # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 2
+
+    wkv6_cuda.launches = 0                      # just before the main path
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        last = prefill({"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) / reps * 1e3
+    t0 = time.perf_counter()
+    logits = evaluate({"tokens": tokens})
+    loss = dec.lm_loss(logits, labels)
+    loss_v = loss.item()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    launches = wkv6_cuda.launches               # just after it
+    peak = torch.cuda.max_memory_allocated()
+
+    v = cfg.vocab
+    require(last.shape == (batch, 1, v) and bool(torch.isfinite(last).all()),
+            f"prefill logits {tuple(last.shape)} are not finite [B, 1, V]")
+    require(logits.shape == (batch, seq, v)
+            and bool(torch.isfinite(logits).all()),
+            f"evaluation logits {tuple(logits.shape)} are not finite "
+            f"[B, T, V]")
+    gap = (logits[:, -1:] - last).abs().max().item()
+    scale = max(1.0, last.abs().max().item())
+    require(gap <= 1e-4 * scale, f"last-position logits of the two "
+                                 f"forwards differ by {gap:.3e}")
+    require(torch.isfinite(loss).item(), f"evaluation loss {loss_v}")
+    expect = cfg.num_layers * (reps + 1)
+    require(launches == expect,
+            f"K3 launched {launches} times, expected {expect}")
+    print(f"  prefill (last_only) of {batch} x {seq} tokens: "
+          f"{prefill_ms:.1f} ms per forward ({reps} forwards after a "
+          f"warm-up); evaluation forward + lm_loss: {eval_ms:.1f} ms, loss "
+          f"{loss_v:.4f} (ln V = {torch.log(torch.tensor(float(v))):.4f})")
+    print(f"  K3 launches {launches} over {reps + 1} forwards "
+          f"({launches // (reps + 1)} per forward, expected "
+          f"{cfg.num_layers}); last-position logits agree to {gap:.2e}; "
+          f"peak memory {peak / 2**30:.2f} GiB")
+    del model, logits, last
+    return launches
+
+
+# ----------------------------------------- phase 9: forward, card vs CPU
+
+
+def phase_forward_parity(cfg, device) -> None:
+    from repro_torch.kernels.wkv6_chunk import wkv6_cuda
+    from repro_torch.launch.runtime import make_forward_fn
+    from repro_torch.models import decoder as dec
+    cpu_model = dec.init_params(cfg, seed=0, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    g = torch.Generator()
+    g.manual_seed(8)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=g)
+    before = wkv6_cuda.launches
+    got = make_forward_fn(gpu_model, last_only=False)({"tokens": tokens})
+    torch.cuda.synchronize()
+    require(wkv6_cuda.launches - before == cfg.num_layers,
+            "the card forward did not run K3 once per layer")
+    expect = make_forward_fn(cpu_model, last_only=False, device="cpu")(
+        {"tokens": tokens})
+    require(got.shape == (2, 64, cfg.vocab)
+            and bool(torch.isfinite(got).all()),
+            "card logits are not finite values of shape [2, 64, V]")
+    diff = (got.cpu() - expect).abs().max().item()
+    print(f"  {cfg.name}: card vs CPU logits over 2 x 64 tokens, max abs "
+          f"diff {diff:.3e}")
+    require(diff < 1e-4, f"card and CPU logits differ by {diff:.3e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card",
@@ -365,7 +645,8 @@ def main() -> int:
         return 2
     from repro_torch.configs import get_config
     from repro_torch.engine import ServeConfig
-    from repro_torch.kernels import grouped_matmul
+    from repro_torch.kernels import grouped_matmul, wkv6_chunk
+    from repro_torch.launch.profile_forward import ARCH, BATCH, SEQ
 
     # 1. environment
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
@@ -377,11 +658,13 @@ def main() -> int:
     print(card)
     t_all = time.perf_counter()
 
-    # 2. build
+    # 2. build: one nvcc for each source, started together
     t0 = time.perf_counter()
-    lib = grouped_matmul.build()
-    print(f"[2] built {lib.relative_to(ROOT)} in "
-          f"{time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda m: m.build(),
+                             (grouped_matmul, wkv6_chunk)))
+    print(f"[2] built {', '.join(str(p.relative_to(ROOT)) for p in libs)} "
+          f"in {time.perf_counter() - t0:.1f} s")
 
     olmoe = get_config("olmoe-1b-7b")
     serve_cfg = ServeConfig(max_batch=4, max_seq=16)
@@ -395,10 +678,28 @@ def main() -> int:
 
     print("[5] card vs CPU through the whole path")
     phase_parity(get_config("paper-gpt-32x1.3b").smoke(), device)
+    torch.cuda.empty_cache()
+
+    print("[6] K2 against its plain version")
+    k2 = phase_k2(olmoe, serve_cfg.max_batch, device)
+    torch.cuda.empty_cache()
+
+    rwkv = get_config(ARCH)             # the geometry the profiler measures
+    print("[7] K3 against its plain version")
+    k3 = phase_k3((BATCH * rwkv.num_heads, SEQ, rwkv.d_model // rwkv.num_heads),
+                  device)
+    torch.cuda.empty_cache()
+
+    print("[8] rwkv6-7b forward, full width and depth")
+    k3["launches"] = phase_forward(rwkv, BATCH, SEQ, device)
+    torch.cuda.empty_cache()
+
+    print("[9] card vs CPU through the forward")
+    phase_forward_parity(rwkv.smoke(), device)
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     print(card)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record, k2, k3]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

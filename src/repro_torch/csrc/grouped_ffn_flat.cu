@@ -6,7 +6,10 @@
 //
 //     out[r] = (act(x[r] · Wg[g]) ⊙ (x[r] · Wu[g])) · Wd[g]
 //
-// and every other row is written as exact zeros.  act is swiglu, geglu (tanh
+// and every other row is written as exact zeros.  K2, the slot-layout FFN that
+// replaces `grouped_ffn_pallas`, launches this same device code on x[S, C, H]
+// viewed flat, with group_end[s] = s·C + counts[s] and tile i in slot i / (C/bm)
+// (src/repro_torch/kernels/grouped_matmul.py).  act is swiglu, geglu (tanh
 // approximation, as jax.nn.gelu) or relu_sq.  Inputs are f32 or bf16; every
 // product accumulates in f32; the output has x's type.
 //

@@ -1,32 +1,32 @@
-"""Build and bind K1, the hand-written CUDA grouped FFN (``csrc/grouped_ffn_flat.cu``).
+"""Build and bind K1 and K2, the hand-written CUDA grouped FFN
+(``csrc/grouped_ffn_flat.cu``).
 
 K1 replaces the Pallas TPU kernel ``grouped_ffn_flat_pallas`` of
-``repro.kernels.grouped_matmul``.  The source is compiled on first use with
-``nvcc`` for ``sm_90a`` into a shared library with a plain C interface under
-``build/kernels/`` of the checkout (file name keyed by the source's hash),
-and called through ``ctypes`` on PyTorch's current stream.  Nothing here
-imports or builds anything at import time, so the module imports on hosts
-without CUDA; calling the kernel there raises.
+``repro.kernels.grouped_matmul`` (the dispatcher's flat layout); K2 replaces
+``grouped_ffn_pallas`` of the same module (the slot layout ``x[S, C, H]``
+with ``counts[S]``).  K2 launches K1's device code on the slot buffer viewed
+flat as ``[S·C, H]``: slot s owns rows ``[s·C, s·C + counts[s])``, so its
+group end is ``s·C + counts[s]`` and row tile i belongs to slot
+``i // (C / bm)``.  That is exactly K1's per-tile group lookup with another
+index map, so K2 adds no device code: tiles wholly past their slot's count
+return at once, and every row at or past it is written as exact zeros.
+
+The source is compiled on first use (``build.build_library``) and called
+through ``ctypes`` on PyTorch's current stream.  Each wrapper counts its own
+launches.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
-__all__ = ["build", "grouped_ffn_flat_cuda", "ACTIVATIONS"]
+from .build import CSRC, build_library
 
-_SRC = pathlib.Path(__file__).resolve().parent.parent / "csrc" / \
-    "grouped_ffn_flat.cu"
-_BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC")
+__all__ = ["build", "grouped_ffn_flat_cuda", "grouped_ffn_cuda",
+           "ACTIVATIONS"]
+
+_SRC = CSRC / "grouped_ffn_flat.cu"
 
 ACTIVATIONS = {"swiglu": 0, "geglu": 1, "relu_sq": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -34,35 +34,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None  # the loaded library, bound once per process
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: K1 builds from source with the CUDA "
-                       "toolkit (nvcc on PATH or under /usr/local/cuda)")
-
-
-def build() -> pathlib.Path:
+def build():
     """Compile K1 (if this source has not been built yet) and return the
     path of its shared library."""
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
-    out = _BUILD_DIR / f"libgrouped_ffn_flat-{digest}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                           f"{_SRC.name}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
-    return out
+    return build_library(_SRC)
 
 
 def _load():
@@ -78,29 +53,22 @@ def _load():
     return _lib
 
 
-def grouped_ffn_flat_cuda(
-    x: torch.Tensor,          # [N, H] rows sorted by group, starts bm-aligned
-    tile_gid: torch.Tensor,   # int32[N // bm] group id per row tile
-    group_end: torch.Tensor,  # int32[S] end (exclusive) of each group's rows
-    w_gate: torch.Tensor,     # [S, H, F]
-    w_up: torch.Tensor,       # [S, H, F]
-    w_down: torch.Tensor,     # [S, F, H]
-    activation: str = "swiglu",
-    bm: int = 128,
-) -> torch.Tensor:
-    """Launch K1 on the tensors' CUDA device (current stream, no sync).
+def _launch(kernel: str, x, tile_gid, group_end, w_gate, w_up, w_down,
+            activation: str, bm: int) -> torch.Tensor:
+    """Check the flat-layout arguments and launch the device code on the
+    tensors' CUDA device (current stream, no sync).
 
     Raises on anything the kernel does not take: a non-CUDA tensor, mixed
     devices or types, a type other than float32/bfloat16, wrong shapes, a
     non-contiguous tensor, or a launch the CUDA runtime refuses."""
     tensors = (x, tile_gid, group_end, w_gate, w_up, w_down)
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
-        raise ValueError("grouped_ffn_flat_cuda needs every tensor on one "
-                         f"CUDA device, got {[str(t.device) for t in tensors]}")
+        raise ValueError(f"{kernel} needs every tensor on one CUDA device, "
+                         f"got {[str(t.device) for t in tensors]}")
     if x.dtype not in _DTYPES or any(w.dtype != x.dtype
                                      for w in (w_gate, w_up, w_down)):
-        raise TypeError(f"K1 takes float32 or bfloat16 x and weights of the "
-                        f"same type, got {x.dtype}, {w_gate.dtype}, "
+        raise TypeError(f"{kernel} takes float32 or bfloat16 x and weights "
+                        f"of the same type, got {x.dtype}, {w_gate.dtype}, "
                         f"{w_up.dtype}, {w_down.dtype}")
     if tile_gid.dtype != torch.int32 or group_end.dtype != torch.int32:
         raise TypeError("tile_gid and group_end must be int32")
@@ -113,12 +81,12 @@ def grouped_ffn_flat_cuda(
             or w_down.shape != (s, f, h) or tile_gid.shape != (n // bm,)
             or group_end.shape != (s,)):
         raise ValueError(
-            f"bad K1 shapes: x {tuple(x.shape)} (N % bm={bm} must be 0), "
-            f"tile_gid {tuple(tile_gid.shape)}, group_end "
+            f"bad {kernel} shapes: rows {tuple(x.shape)} (N % bm={bm} must "
+            f"be 0), tile_gid {tuple(tile_gid.shape)}, group_end "
             f"{tuple(group_end.shape)}, w_gate {tuple(w_gate.shape)}, "
             f"w_up {tuple(w_up.shape)}, w_down {tuple(w_down.shape)}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("K1 takes contiguous tensors only")
+        raise ValueError(f"{kernel} takes contiguous tensors only")
     out = torch.empty_like(x)
     if n == 0:
         return out
@@ -132,9 +100,60 @@ def grouped_ffn_flat_cuda(
         out.data_ptr(), partial.data_ptr(), n, h, f, bm, _DTYPES[x.dtype],
         ACTIVATIONS[activation], stream)
     if rc != 0:
-        raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
-    grouped_ffn_flat_cuda.launches += 1
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
     return out
 
 
+def grouped_ffn_flat_cuda(
+    x: torch.Tensor,          # [N, H] rows sorted by group, starts bm-aligned
+    tile_gid: torch.Tensor,   # int32[N // bm] group id per row tile
+    group_end: torch.Tensor,  # int32[S] end (exclusive) of each group's rows
+    w_gate: torch.Tensor,     # [S, H, F]
+    w_up: torch.Tensor,       # [S, H, F]
+    w_down: torch.Tensor,     # [S, F, H]
+    activation: str = "swiglu",
+    bm: int = 128,
+) -> torch.Tensor:
+    """K1: the flat-layout grouped FFN on the tensors' CUDA device."""
+    out = _launch("K1", x, tile_gid, group_end, w_gate, w_up, w_down,
+                  activation, bm)
+    if x.shape[0]:
+        grouped_ffn_flat_cuda.launches += 1
+    return out
+
+
+def grouped_ffn_cuda(
+    x: torch.Tensor,          # [S, C, H], C a multiple of bm
+    counts: torch.Tensor,     # int[S] valid rows per slot
+    w_gate: torch.Tensor,     # [S, H, F]
+    w_up: torch.Tensor,       # [S, H, F]
+    w_down: torch.Tensor,     # [S, F, H]
+    activation: str = "swiglu",
+    bm: int = 128,
+) -> torch.Tensor:
+    """K2: the slot-layout grouped FFN on the tensors' CUDA device; rows at
+    or past ``counts[s]`` come out as exact zeros.  Raises as K1 does, and
+    on a counts vector that does not match the slots."""
+    if x.dim() != 3 or counts.shape != (x.shape[0],):
+        raise ValueError(f"K2 takes x [S, C, H] and counts [S], got "
+                         f"{tuple(x.shape)} and {tuple(counts.shape)}")
+    s, c, h = x.shape
+    if c % bm:
+        raise ValueError(f"K2: capacity C={c} is not a multiple of bm={bm}")
+    if counts.device != x.device:
+        raise ValueError(f"K2: counts on {counts.device}, x on {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("K2 takes contiguous tensors only")
+    slot = torch.arange(s, dtype=torch.int32, device=x.device)
+    group_end = (slot * c + counts.clamp(0, c).to(torch.int32))
+    tile_gid = torch.arange(s * c // bm, dtype=torch.int32,
+                            device=x.device) // max(c // bm, 1)
+    out = _launch("K2", x.view(s * c, h), tile_gid, group_end, w_gate, w_up,
+                  w_down, activation, bm)
+    if s * c:
+        grouped_ffn_cuda.launches += 1
+    return out.view(s, c, h)
+
+
 grouped_ffn_flat_cuda.launches = 0   # kernel launches since the last reset
+grouped_ffn_cuda.launches = 0

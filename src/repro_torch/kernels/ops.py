@@ -9,9 +9,10 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .grouped_matmul import grouped_ffn_flat_cuda
+from .grouped_matmul import grouped_ffn_cuda, grouped_ffn_flat_cuda
+from .wkv6_chunk import wkv6_cuda
 
-__all__ = ["grouped_ffn_flat", "tile_group_ids"]
+__all__ = ["grouped_ffn", "grouped_ffn_flat", "tile_group_ids", "wkv6"]
 
 
 def tile_group_ids(group_start: torch.Tensor, n: int, bm: int,
@@ -50,3 +51,43 @@ def grouped_ffn_flat(
     tile_gid = tile_group_ids(group_start, n, bm, w_gate.shape[0])
     return grouped_ffn_flat_cuda(x, tile_gid, group_end.to(torch.int32),
                                  w_gate, w_up, w_down, activation, bm)
+
+
+def grouped_ffn(
+    x: torch.Tensor,          # [S, C, H]
+    counts: torch.Tensor,     # int[S] valid rows per slot
+    w_gate: torch.Tensor,
+    w_up: torch.Tensor,
+    w_down: torch.Tensor,
+    activation: str = "swiglu",
+    bm: int = 128,
+) -> torch.Tensor:
+    """Ragged per-slot gated FFN.  x: [S, C, H] -> [S, C, H]; rows at or past
+    ``counts[s]`` give zeros.  C is padded to a multiple of the row tile
+    ``bm`` with zero rows for the kernel, as the reference wrapper does; F is
+    never padded (the kernel masks a ragged F)."""
+    if x.device.type == "cpu":
+        return ref.grouped_ffn_ref(x, counts, w_gate, w_up, w_down,
+                                   activation)
+    c0 = x.shape[1]
+    pad = (-c0) % bm
+    xp = torch.nn.functional.pad(x, (0, 0, 0, pad)) if pad else x
+    out = grouped_ffn_cuda(xp, counts, w_gate, w_up, w_down, activation, bm)
+    return out[:, :c0] if pad else out
+
+
+def wkv6(
+    q: torch.Tensor,     # [BH, T, D]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lw: torch.Tensor,    # [BH, T, D] log-decay (<= 0)
+    u: torch.Tensor,     # [BH, D]
+    chunk: int = 128,
+) -> torch.Tensor:
+    """RWKV-6 recurrence over [BH, T, D] from a zero state; output in q's
+    type.  ``chunk`` is the reference wrapper's time tile; K3 takes any T,
+    so it pads nothing and the argument changes no result."""
+    del chunk
+    if q.device.type == "cpu":
+        return ref.wkv6_chunk_ref(q, k, v, torch.exp(lw.float()), u)[0]
+    return wkv6_cuda(q, k, v, lw, u)

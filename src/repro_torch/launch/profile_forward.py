@@ -1,0 +1,137 @@
+"""Where the device time of the full-sequence forward goes, from one
+``torch.profiler`` run on the card.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_forward [--out DIR]
+
+Builds rwkv6-7b at full width and depth with f32 weights drawn on the card
+from ``SEED`` (TF32 off), runs one forward of ``BATCH`` x ``SEQ`` tokens
+through ``make_forward_fn`` as a warm-up, then profiles one more (serving
+prefill, ``last_only``).  ``chip_smoke.py`` drives the forward at the same
+``BATCH`` and ``SEQ``.  Prints the device time of
+K3, of the matrix products and of the rest, and the device's idle share:
+the part of the forward's wall window (host clock, ending in a
+synchronisation) in which no kernel or copy ran.  Writes the per-kernel
+table and the same summary as JSON under ``--out`` (default
+``build/profile/`` of the checkout).  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from ..configs import get_config
+from ..models import decoder as dec
+from .runtime import make_forward_fn
+
+ROOT = pathlib.Path(__file__).resolve().parents[3]
+ARCH, BATCH, SEQ, SEED = "rwkv6-7b", 4, 2048, 0
+WINDOW = "profiled_forward"
+MATMUL_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "splitk")
+
+
+def part_of(kernel: str) -> str:
+    """The part of the forward a device kernel belongs to, by its name."""
+    if "wkv6_kernel" in kernel:
+        return "K3 (wkv6)"
+    if any(m in kernel.lower() for m in MATMUL_MARKS):
+        return "matrix products"
+    return "rest"
+
+
+def _busy_us(intervals, lo: float, hi: float) -> float:
+    """Length of the union of ``intervals`` clipped to [lo, hi]."""
+    busy, end = 0.0, lo
+    for a, b in sorted(intervals):
+        a, b = max(a, end), min(b, hi)
+        if b > a:
+            busy += b - a
+            end = b
+    return busy
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
+    args = ap.parse_args(argv)
+
+    device = dec.require_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True
+    ).stdout.strip().splitlines()[0]
+    cfg = get_config(ARCH)
+    model = dec.init_params(cfg, seed=SEED, device=device)
+    g = torch.Generator(device=model.device)
+    g.manual_seed(SEED + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (BATCH, SEQ),
+                                     generator=g, device=model.device)}
+    fwd = make_forward_fn(model, last_only=True)
+    fwd(batch)                                   # warm-up
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(WINDOW):
+            fwd(batch)
+            torch.cuda.synchronize()
+    events = prof.events()
+    window = [e for e in events
+              if e.name == WINDOW and e.device_type == DeviceType.CPU]
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and e.name != WINDOW
+               and not getattr(e, "is_user_annotation", False)]
+    if len(window) != 1 or not kernels:
+        raise RuntimeError(f"the profiler recorded {len(kernels)} device "
+                           f"events and {len(window)} forward windows")
+    lo, hi = window[0].time_range.start, window[0].time_range.end
+    by_part: dict = {}
+    by_kernel: dict = {}
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        by_part[part_of(e.name)] = by_part.get(part_of(e.name), 0.0) + us
+        n, t = by_kernel.get(e.name, (0, 0.0))
+        by_kernel[e.name] = (n + 1, t + us)
+    device_us = sum(by_part.values())
+    busy = _busy_us([(e.time_range.start, e.time_range.end)
+                     for e in kernels], lo, hi)
+    summary = {
+        "card": card, "arch": cfg.name, "batch": BATCH, "seq": SEQ,
+        "last_only": True,
+        "window_ms": (hi - lo) / 1e3, "device_ms": device_us / 1e3,
+        "busy_ms": busy / 1e3, "idle_share": 1.0 - busy / (hi - lo),
+        "parts_ms": {k: v / 1e3 for k, v in sorted(by_part.items())},
+        "kernel_launches": len(kernels),
+    }
+    print(card)
+    print(f"{cfg.name}, {BATCH} x {SEQ} tokens, last_only: "
+          f"window {summary['window_ms']:.3f} ms, device time "
+          f"{summary['device_ms']:.3f} ms in {len(kernels)} device events, "
+          f"idle share {summary['idle_share']:.4f}")
+    for part, ms in summary["parts_ms"].items():
+        print(f"  {part:16s} {ms:10.3f} ms  {ms * 1e3 / device_us:7.2%} of "
+              f"device time")
+
+    out = pathlib.Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    rows = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
+    with open(out / "profile_forward.txt", "w") as fh:
+        fh.write(f"{card}\n{json.dumps(summary)}\n")
+        fh.write("device ms  calls  part              kernel\n")
+        for name, (n, us) in rows:
+            fh.write(f"{us / 1e3:9.3f}  {n:5d}  {part_of(name):16s}  "
+                     f"{name[:160]}\n")
+    (out / "profile_forward.json").write_text(json.dumps(summary, indent=1))
+    print(f"per-kernel table: {out / 'profile_forward.txt'}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

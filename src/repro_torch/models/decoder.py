@@ -1,16 +1,22 @@
-"""Decoder for serving: attention + MicroEP MoE blocks (twin of the decode
-path of ``repro.models.decoder``).
+"""The decoder (twin of ``repro.models.decoder``): the decode step of
+attention + MicroEP MoE decoders, and the full-sequence forward of RWKV-6
+decoders.
 
 The MoE dispatch runs the full MicroEP machinery on the degenerate
 single-device group (G=1, ``local_moe_apply``): top-k gating, counts, the
 warm-started LP water-fill, rounding, Algorithm 1 routing, packed dispatch,
 the grouped FFN (K1 on a CUDA device) and combine, in every MoE layer of
-every decode step.  The reference's stacked ``layers_scan`` parameters are
-one module per layer here, and its ``lax.scan`` over layers a Python loop.
+every decode step.  The full-sequence forward (serving prefill and
+evaluation) runs every RWKV-6 block's recurrence through K3 on a CUDA
+device.  The reference's stacked ``layers_scan`` parameters are one module
+per layer here, and its ``lax.scan`` over layers a Python loop.
 
-Supported: decoder configs whose every layer is a global-attention + MoE
-block (``pattern == ("attn",)``, no sliding window, no M-RoPE, no expert
-tensor parallelism) — olmoe-1b-7b and paper-gpt-32x1.3b.
+Supported: ``decode_step`` on decoders whose every layer is a
+global-attention + MoE block (``pattern == ("attn",)``, no sliding window,
+no M-RoPE, no expert tensor parallelism) — olmoe-1b-7b and
+paper-gpt-32x1.3b; ``forward`` on decoders whose every layer is an RWKV-6
+block (``pattern == ("rwkv",)``) — rwkv6-7b.  The attention prefill and the
+stateful RWKV-6 decode are later slices.
 """
 from __future__ import annotations
 
@@ -31,11 +37,13 @@ from .layers.attention import (AttnConfig, Attention, KVCache,
                                decode_attention, init_attention,
                                init_kv_cache)
 from .layers.norms import Norm
+from .layers.rwkv6 import (ChannelMix, TimeMix, init_rwkv6,
+                           init_rwkv6_channel)
 
-__all__ = ["require_device", "Decoder", "init_params",
-           "load_reference_params", "init_solver_states",
-           "init_decode_state", "decode_step", "reset_decode_slots",
-           "local_moe_apply", "n_moe_layers"]
+__all__ = ["require_device", "check_servable", "check_forward", "Decoder",
+           "init_params", "load_reference_params", "forward", "lm_loss",
+           "init_solver_states", "init_decode_state", "decode_step",
+           "reset_decode_slots", "local_moe_apply", "n_moe_layers"]
 
 
 def require_device(device) -> torch.device:
@@ -49,13 +57,32 @@ def require_device(device) -> torch.device:
     return device
 
 
-def _check_supported(cfg: ArchConfig) -> None:
+def _is_rwkv(cfg: ArchConfig) -> bool:
+    return tuple(cfg.pattern) == ("rwkv",)
+
+
+def check_servable(cfg: ArchConfig) -> None:
+    """Raise unless the decode step (serving) runs ``cfg``."""
     if not cfg.moe or tuple(cfg.pattern) != ("attn",) or cfg.window \
             or cfg.mrope_sections or max(cfg.etp, 1) != 1 \
             or cfg.frontend_stub:
         raise ValueError(
             f"{cfg.name}: the port serves global-attention MoE decoders "
-            f"(pattern ('attn',), no window, no M-RoPE, etp 1)")
+            f"(pattern ('attn',), no window, no M-RoPE, etp 1); the "
+            f"stateful RWKV-6 decode and other blocks are not ported yet")
+
+
+def check_forward(cfg: ArchConfig) -> None:
+    """Raise unless the full-sequence forward runs ``cfg``."""
+    if not _is_rwkv(cfg) or cfg.moe or cfg.frontend_stub:
+        raise ValueError(
+            f"{cfg.name}: the port's full-sequence forward runs RWKV-6 "
+            f"decoders (pattern ('rwkv',), no MoE); the attention prefill "
+            f"is not ported yet")
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    (check_forward if _is_rwkv(cfg) else check_servable)(cfg)
 
 
 def _attn_cfg(cfg: ArchConfig) -> AttnConfig:
@@ -99,10 +126,24 @@ class Block(nn.Module):
         self.moe = MoE(cfg, device=device)
 
 
+class RWKVBlock(nn.Module):
+    def __init__(self, cfg: ArchConfig, device="cuda"):
+        super().__init__()
+        self.ln1 = Norm(cfg.d_model, cfg.norm, device=device)
+        self.time = TimeMix(cfg.d_model, cfg.num_heads, device=device)
+        self.ln2 = Norm(cfg.d_model, cfg.norm, device=device)
+        self.chan = ChannelMix(cfg.d_model, cfg.d_ff, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.time(self.ln1(x))
+        return x + self.chan(self.ln2(x))
+
+
 class Decoder(nn.Module):
     """The model, in f32 (as the reference's single-device session):
-    embedding, one :class:`Block` per layer, final norm and an untied head
-    when the config has one.  Weights start at zero; fill them with
+    embedding, one block per layer (:class:`Block` for attention + MoE,
+    :class:`RWKVBlock` for RWKV-6), final norm and an untied head when the
+    config has one.  Weights start at zero; fill them with
     :func:`init_params` or :func:`load_reference_params`."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
@@ -113,7 +154,8 @@ class Decoder(nn.Module):
         self.embed = nn.Parameter(
             torch.zeros(cfg.vocab, cfg.d_model, device=device),
             requires_grad=False)
-        self.blocks = nn.ModuleList(Block(cfg, device=device)
+        kind = RWKVBlock if _is_rwkv(cfg) else Block
+        self.blocks = nn.ModuleList(kind(cfg, device=device)
                                     for _ in range(cfg.num_layers))
         self.final_norm = Norm(cfg.d_model, cfg.norm, device=device)
         self.head = None if cfg.tie_embeddings else nn.Parameter(
@@ -142,6 +184,10 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> Decoder:
     _randn_(model.embed, g, dm ** -0.5)
     sg = (2.0 / (dm + f)) ** 0.5
     for blk in model.blocks:
+        if isinstance(blk, RWKVBlock):
+            blk.time = init_rwkv6(dm, cfg.num_heads, g, device=device)
+            blk.chan = init_rwkv6_channel(dm, cfg.d_ff, g, device=device)
+            continue
         blk.attn = init_attention(_attn_cfg(cfg), g, device=device)
         _randn_(blk.moe.router, g, dm ** -0.5)
         for w in (blk.moe.w_gate, blk.moe.w_up, blk.moe.w_down):
@@ -179,8 +225,10 @@ def load_reference_params(params_np: dict, cfg: ArchConfig,
     ``params_np`` is the reference parameter tree with numpy leaves (the
     layout ``repro.models.decoder.init_params(..., layout="scan")`` makes):
     "embed", "final_norm", "layers_scan" (stacked [reps, ...]),
-    "layers_rem" and an optional "head"; each block holds "ln1", "ln2",
-    "attn" and "moe" = {"router", "experts": (w_gate, w_up, w_down)}."""
+    "layers_rem" and an optional "head"; an attention block holds "ln1",
+    "ln2", "attn" and "moe" = {"router", "experts": (w_gate, w_up,
+    w_down)}, an RWKV-6 block "ln1", "ln2", "time" (its "gn" a
+    {"scale", "bias"} tree) and "chan"."""
     model = Decoder(cfg, device=device)
 
     def put(dst: torch.Tensor, a) -> None:
@@ -195,6 +243,13 @@ def load_reference_params(params_np: dict, cfg: ArchConfig,
         if norm.kind == "ln":
             put(norm.bias, tree["bias"])
 
+    def put_module(module: nn.Module, tree: dict) -> None:
+        for name, w in module.named_parameters():   # "gn.scale" -> [gn][scale]
+            leaf = tree
+            for part in name.split("."):
+                leaf = leaf[part]
+            put(w, leaf)
+
     put(model.embed, params_np["embed"])
     put_norm(model.final_norm, params_np["final_norm"])
     trees = _block_trees(params_np)
@@ -204,8 +259,11 @@ def load_reference_params(params_np: dict, cfg: ArchConfig,
     for blk, tree in zip(model.blocks, trees):
         put_norm(blk.ln1, tree["ln1"])
         put_norm(blk.ln2, tree["ln2"])
-        for name, w in blk.attn.named_parameters():
-            put(w, tree["attn"][name])
+        if isinstance(blk, RWKVBlock):
+            put_module(blk.time, tree["time"])
+            put_module(blk.chan, tree["chan"])
+            continue
+        put_module(blk.attn, tree["attn"])
         put(blk.moe.router, tree["moe"]["router"])
         wg, wu, wd = tree["moe"]["experts"]
         put(blk.moe.w_gate, wg)
@@ -214,6 +272,41 @@ def load_reference_params(params_np: dict, cfg: ArchConfig,
     if model.head is not None:
         put(model.head, params_np["head"])
     return model
+
+
+# --------------------------------------------------------------------------
+# the full-sequence forward (serving prefill, evaluation) and the loss
+# --------------------------------------------------------------------------
+
+
+def forward(model: Decoder, batch: dict, last_only: bool = False,
+            return_hidden: bool = False) -> torch.Tensor:
+    """Full forward pass over ``batch`` {"tokens": int[B, T]} -> logits
+    [B, T, V] (the reference's ``forward`` without MoE metrics or solver
+    states: the RWKV-6 decoders it runs have no MoE layer).
+
+    ``last_only`` computes logits for the final position only ([B, 1, V],
+    serving prefill); ``return_hidden`` returns the final-normed hidden
+    state [B, T, dm] instead of logits."""
+    check_forward(model.cfg)
+    x = model.embed[batch["tokens"]]                     # [B, T, dm]
+    for blk in model.blocks:
+        x = blk(x)
+    x = model.final_norm(x)
+    if return_hidden:
+        return x
+    if last_only:
+        x = x[:, -1:]
+    return x @ (model.head if model.head is not None else model.embed.T)
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy in f32; labels < 0 are masked."""
+    mask = (labels >= 0).float()
+    safe = labels.clamp(min=0)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
 
 
 # --------------------------------------------------------------------------
@@ -300,6 +393,7 @@ def decode_step(model: Decoder, state: dict, batch: dict,
     batch's expert loads, warm-started from the previous step.  The input
     state is not modified."""
     cfg = model.cfg
+    check_servable(cfg)
     acfg = _attn_cfg(cfg)
     x = model.embed[batch["tokens"]]                     # [B, 1, dm]
     b = x.shape[0]

@@ -1,0 +1,150 @@
+"""RWKV-6 (Finch) block [arXiv:2404.05892] for the full-sequence forward
+(twin of the stateless path of ``repro.models.layers.rwkv6``).
+
+Time mixing: token-shift interpolation (data-dependent through a LoRA on
+the shift mix), r/k/v/g projections, per-channel decay w_t =
+exp(-exp(w_proj(x_t))), the WKV recurrence (``ops.wkv6``: K3 on a CUDA
+device), a group norm over heads and a gated output.  Channel mixing: the
+RWKV squared-ReLU mixer.  Parameters keep the reference's names and layout
+(``x @ W`` with W [in, out]).
+
+The stateful decode branch (an incoming WKV state and shift, one token per
+step) is not ported yet: serving rwkv6-7b needs a state-carrying K3.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...kernels import ops
+from .norms import Norm
+
+__all__ = ["TimeMix", "ChannelMix", "init_rwkv6", "init_rwkv6_channel"]
+
+GN_EPS = 64e-5   # RWKV-6's per-head group-norm epsilon
+
+
+def _param(*shape, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(*shape, device=device),
+                        requires_grad=False)
+
+
+def _shifted(x: torch.Tensor) -> torch.Tensor:
+    """x_{t-1} along T, zeros before the first token: [B, T, dm]."""
+    return F.pad(x[:, :-1], (0, 0, 1, 0))
+
+
+class TimeMix(nn.Module):
+    """RWKV-6 time mixing: mix_base [5, dm] (r, k, v, w, g shift mixes),
+    mix_lora_a [dm, 32], mix_lora_b [32, 5·dm], wr/wk/wv/wg/wo [dm, dm],
+    decay_base [dm], decay_lora_a [dm, r], decay_lora_b [r, dm], u [H, D]
+    and the group norm's gn.scale / gn.bias [dm]."""
+
+    def __init__(self, d_model: int, num_heads: int, lora_r: int = 64,
+                 device="cuda"):
+        super().__init__()
+        dm, hd = d_model, d_model // num_heads
+        self.num_heads = num_heads
+        self.mix_base = _param(5, dm, device=device)
+        self.mix_lora_a = _param(dm, 32, device=device)
+        self.mix_lora_b = _param(32, 5 * dm, device=device)
+        self.wr, self.wk = _param(dm, dm, device=device), \
+            _param(dm, dm, device=device)
+        self.wv, self.wg = _param(dm, dm, device=device), \
+            _param(dm, dm, device=device)
+        self.decay_base = _param(dm, device=device)
+        self.decay_lora_a = _param(dm, lora_r, device=device)
+        self.decay_lora_b = _param(lora_r, dm, device=device)
+        self.u = _param(num_heads, hd, device=device)
+        self.wo = _param(dm, dm, device=device)
+        self.gn = Norm(dm, "ln", device=device)
+
+    def _mix_streams(self, x: torch.Tensor):
+        """x: [B, T, dm] -> the five mixed streams xr, xk, xv, xw, xg."""
+        delta = _shifted(x) - x
+        lora = torch.tanh(x @ self.mix_lora_a) @ self.mix_lora_b  # [B,T,5dm]
+        lora = lora.reshape(*x.shape[:-1], 5, x.shape[-1]).movedim(-2, 0)
+        mix = self.mix_base[:, None, None, :] + lora              # [5,B,T,dm]
+        return (x[None] + delta[None] * mix).unbind(0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: [B, T, dm] -> [B, T, dm], from a zero WKV state."""
+        b, t, dm = x.shape
+        h = self.num_heads
+        hd = dm // h
+        xr, xk, xv, xw, xg = self._mix_streams(x)
+        r = xr @ self.wr
+        k = xk @ self.wk
+        v = xv @ self.wv
+        g = F.silu(xg @ self.wg)
+        lw = -torch.exp(self.decay_base
+                        + torch.tanh(xw @ self.decay_lora_a)
+                        @ self.decay_lora_b)
+
+        def split(a):  # [B, T, dm] -> [B*H, T, D]
+            return a.reshape(b, t, h, hd).transpose(1, 2) \
+                    .reshape(b * h, t, hd).contiguous()
+
+        u = self.u[None].expand(b, h, hd).reshape(b * h, hd).contiguous()
+        o = ops.wkv6(split(r), split(k), split(v), split(lw), u)
+        o = o.reshape(b, h, t, hd).transpose(1, 2)               # [B,T,H,D]
+        # GroupNorm with groups = heads: normalise per head, affine
+        # parameters over the full channel dim
+        of = o.float()
+        mu = of.mean(-1, keepdim=True)
+        var = of.var(-1, keepdim=True, correction=0)
+        o = ((of - mu) * torch.rsqrt(var + GN_EPS)).reshape(b, t, dm)
+        o = (o * self.gn.scale.float() + self.gn.bias.float()).to(x.dtype)
+        return (o * g) @ self.wo
+
+
+class ChannelMix(nn.Module):
+    """RWKV-6 channel mixing: mix_k, mix_r [dm], wk [dm, d_ff],
+    wv [d_ff, dm], wr [dm, dm]."""
+
+    def __init__(self, d_model: int, d_ff: int, device="cuda"):
+        super().__init__()
+        self.mix_k = _param(d_model, device=device)
+        self.mix_r = _param(d_model, device=device)
+        self.wk = _param(d_model, d_ff, device=device)
+        self.wv = _param(d_ff, d_model, device=device)
+        self.wr = _param(d_model, d_model, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        delta = _shifted(x) - x
+        xk = x + delta * torch.tanh(self.mix_k)
+        xr = x + delta * torch.tanh(self.mix_r)
+        k = torch.square(torch.relu(xk @ self.wk))
+        return torch.sigmoid(xr @ self.wr) * (k @ self.wv)
+
+
+def _fill(w: torch.Tensor, g: torch.Generator, scale: float) -> None:
+    w.copy_(torch.randn(w.shape, generator=g, device=w.device) * scale)
+
+
+@torch.no_grad()
+def init_rwkv6(d_model: int, num_heads: int, generator: torch.Generator,
+               device="cuda") -> TimeMix:
+    """Random time-mix weights from ``generator``, scaled as the reference
+    initialises them (zero shift mixes, decay base -5, identity norm)."""
+    m = TimeMix(d_model, num_heads, device=device)
+    s = d_model ** -0.5
+    for w, scale in ((m.mix_lora_a, s), (m.mix_lora_b, 0.01), (m.wr, s),
+                     (m.wk, s), (m.wv, s), (m.wg, s), (m.decay_lora_a, s),
+                     (m.decay_lora_b, 0.01), (m.u, 0.5), (m.wo, s)):
+        _fill(w, generator, scale)
+    m.decay_base.fill_(-5.0)
+    return m
+
+
+@torch.no_grad()
+def init_rwkv6_channel(d_model: int, d_ff: int, generator: torch.Generator,
+                       device="cuda") -> ChannelMix:
+    """Random channel-mix weights from ``generator``, scaled as the
+    reference initialises them (zero shift mixes)."""
+    m = ChannelMix(d_model, d_ff, device=device)
+    s = d_model ** -0.5
+    for w, scale in ((m.wk, s), (m.wv, d_ff ** -0.5), (m.wr, s)):
+        _fill(w, generator, scale)
+    return m

@@ -108,6 +108,7 @@ class ServingSession:
     def __init__(self, cfg: ArchConfig, serve_cfg: ServeConfig,
                  seed: int = 0, device="cuda",
                  model: Optional[dec.Decoder] = None):
+        dec.check_servable(cfg)
         self.device = dec.require_device(device)
         self.cfg = cfg
         self.serve_cfg = serve_cfg

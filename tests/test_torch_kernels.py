@@ -1,6 +1,7 @@
-"""The port's plain K1 (``repro_torch.kernels``) against the JAX reference:
-the same numpy inputs, made from a seed, go through both.  The CUDA kernel
-itself runs only on the card (``chip_smoke.py``, ``test_torch_gpu.py``)."""
+"""The port's plain K1 and K2 (``repro_torch.kernels``) against the JAX
+reference: the same numpy inputs, made from a seed, go through both.  The
+CUDA kernels themselves run only on the card (``chip_smoke.py``,
+``test_torch_gpu.py``)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,7 +10,8 @@ import torch
 from repro.kernels import ops, ref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.grouped_matmul import grouped_ffn_flat_cuda
+from repro_torch.kernels.grouped_matmul import (grouped_ffn_cuda,
+                                               grouped_ffn_flat_cuda)
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -108,3 +110,65 @@ def test_k1_rejects_cpu_tensors_and_bad_bm():
     assert len(x) == 24
     with pytest.raises(ValueError, match="multiple of bm"):
         tops.grouped_ffn_flat(*t, bm=16)
+
+
+# ------------------------------------------------- K2: the slot layout
+
+
+def _slot_case(seed, s, c, h, f, counts):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((s, c, h)) * 0.5).astype(np.float32)
+    wg = (rng.standard_normal((s, h, f)) * h ** -0.5).astype(np.float32)
+    wu = (rng.standard_normal((s, h, f)) * h ** -0.5).astype(np.float32)
+    wd = (rng.standard_normal((s, f, h)) * f ** -0.5).astype(np.float32)
+    return x, np.asarray(counts, np.int32), wg, wu, wd
+
+
+@pytest.mark.parametrize("activation", ["swiglu", "geglu"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,c,h,f,counts", [
+    (2, 256, 128, 512, [200, 37]),
+    (3, 384, 128, 512, [0, 384, 129]),
+], ids=["s2", "s3-zero-slot"])
+def test_plain_k2_matches_reference(s, c, h, f, counts, dtype, activation):
+    """``test_grouped_ffn_vs_ref``'s shapes; rows past the counts hold junk
+    that must not reach the output."""
+    x, cnt, wg, wu, wd = _slot_case(s + c, s, c, h, f, counts)
+    if dtype == "bfloat16":
+        x, wg, wu, wd = map(_bf16, (x, wg, wu, wd))
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    expect = ref.grouped_ffn_ref(
+        jnp.asarray(x, jdt), jnp.asarray(cnt),
+        *(jnp.asarray(a, jdt) for a in (wg, wu, wd)), activation)
+    got = tops.grouped_ffn(
+        torch.tensor(x, dtype=tdt), torch.tensor(cnt),
+        *(torch.tensor(a, dtype=tdt) for a in (wg, wu, wd)),
+        activation=activation)
+    assert got.dtype == tdt and got.shape == x.shape
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(expect, np.float32), **tol)
+
+
+def test_plain_k2_matches_pallas_interpret_with_zero_slot():
+    """The CPU entry point against the Pallas kernel in interpret mode (C
+    padded to bm by both wrappers); a zero-count slot and the rows past
+    every count give exact zeros."""
+    x, cnt, wg, wu, wd = _slot_case(11, 3, 100, 128, 256, [0, 64, 100])
+    expect = ops.grouped_ffn(*(jnp.asarray(a) for a in (x, cnt, wg, wu, wd)),
+                             impl="interpret", bm=128, bf=128)
+    got = tops.grouped_ffn(*(torch.tensor(a) for a in (x, cnt, wg, wu, wd)),
+                           bm=128).numpy()
+    np.testing.assert_allclose(got, np.asarray(expect), **F32_TOL)
+    assert (got[0] == 0.0).all() and (got[1, 64:] == 0.0).all()
+    assert (np.abs(got[1, :64]).max(axis=1) > 0).all()
+
+
+def test_k2_rejects_cpu_tensors_and_unaligned_capacity():
+    x, cnt, wg, wu, wd = _slot_case(12, 2, 24, 16, 16, [3, 5])
+    t = [torch.tensor(a) for a in (x, cnt, wg, wu, wd)]
+    with pytest.raises(ValueError, match="CUDA"):
+        grouped_ffn_cuda(*t, bm=8)
+    with pytest.raises(ValueError, match="multiple of bm"):
+        grouped_ffn_cuda(*t, bm=16)
