@@ -2,7 +2,8 @@
 
 Each hand-written kernel's semantics are defined here; the CPU tests hold
 these against the JAX oracles, and ``chip_smoke.py`` holds each kernel
-against its plain version on the card.
+against its plain version on the card, on inputs drawn by ``wkv6_inputs``
+for K3.
 """
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["grouped_ffn_ref", "grouped_ffn_flat_ref", "wkv6_chunk_ref"]
+__all__ = ["grouped_ffn_ref", "grouped_ffn_flat_ref", "wkv6_chunk_ref",
+           "wkv6_subchunk_ref", "wkv6_inputs"]
 
 
 def _act(h_gate: torch.Tensor, h_up: torch.Tensor, activation: str):
@@ -84,16 +86,131 @@ def wkv6_chunk_ref(
 
         o_t = q_t (S_{t-1} + u ⊙ k_t v_tᵀ),   S_t = diag(w_t) S_{t-1} + k_t v_tᵀ
 
-    The state and every product are float32.  Returns (o [BH, T, D] in q's
-    type, final state [BH, D, D] float32)."""
+    The state and every product are float32, or float64 where q is.
+    Returns (o [BH, T, D] in q's type, final state [BH, D, D])."""
     bh, t, d = q.shape
-    s = (torch.zeros((bh, d, d), dtype=torch.float32, device=q.device)
-         if state is None else state.float())
-    qf, kf, vf, wf = (a.float() for a in (q, k, v, w))
-    uf = u.float()[:, :, None]
-    o = torch.empty((bh, t, d), dtype=torch.float32, device=q.device)
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    s = (torch.zeros((bh, d, d), dtype=acc, device=q.device)
+         if state is None else state.to(acc))
+    qf, kf, vf, wf = (a.to(acc) for a in (q, k, v, w))
+    uf = u.to(acc)[:, :, None]
+    o = torch.empty((bh, t, d), dtype=acc, device=q.device)
     for i in range(t):
         kv = kf[:, i, :, None] * vf[:, i, None, :]
         o[:, i] = torch.einsum("bi,bij->bj", qf[:, i], s + uf * kv)
         s = wf[:, i, :, None] * s + kv
     return o.to(q.dtype), s
+
+
+SUB = 16   # K3's steps per sub-chunk
+LOG2E = 1.4426950408889634
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero: ``cvt.rna.tf32.f32``."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as K3's tensor cores take it: a = ah + al, b = bh + bl with
+    every part TF32, and al·bh + ah·bl + ah·bh summed in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _subchunk_score(q, k, u, c, c_prev):
+    """K3's score of one sub-chunk, [BH, SUB, SUB], with c and c_prev the
+    cumulative log-decays in log2 units: every decay 2^(c_{t-1} - c_s),
+    s < t, split at a step m with s <= m <= t - 1 into two factors <= 1, m
+    the last step of s's 4-step block when t lies in a later block, else the
+    block's second step (none for s = t - 1); the bonus q_t·(u ⊙ k_t) on the
+    diagonal.  Each block of entries is a product of factor rows, in
+    float32."""
+    sc = torch.zeros(q.shape[0], SUB, SUB, dtype=torch.float32,
+                     device=q.device)
+
+    def put(rows, cols, qm, km):
+        sc[:, rows, cols] = qm @ km.transpose(1, 2)
+
+    for tb in range(SUB // 4):
+        t = slice(4 * tb, 4 * tb + 4)
+        for sb in range(tb):
+            r, s = 4 * sb + 3, slice(4 * sb, 4 * sb + 4)
+            put(t, s, q[:, t] * torch.exp2(c_prev[:, t] - c[:, r:r + 1]),
+                k[:, s] * torch.exp2(c[:, r:r + 1] - c[:, s]))
+        m, hi, lo = 4 * tb + 1, slice(4 * tb + 2, 4 * tb + 4), slice(4 * tb, 4 * tb + 2)
+        put(hi, lo, q[:, hi] * torch.exp2(c_prev[:, hi] - c[:, m:m + 1]),
+            k[:, lo] * torch.exp2(c[:, m:m + 1] - c[:, lo]))
+        for a in (4 * tb + 1, 4 * tb + 3):
+            sc[:, a, a - 1] = (q[:, a] * k[:, a - 1]).sum(-1)
+    idx = torch.arange(SUB, device=q.device)
+    sc[:, idx, idx] = (q * u[:, None, :] * k).sum(-1)
+    return sc
+
+
+def wkv6_subchunk_ref(
+    q: torch.Tensor,     # [BH, T, D]
+    k: torch.Tensor,     # [BH, T, D]
+    v: torch.Tensor,     # [BH, T, D]
+    lw: torch.Tensor,    # [BH, T, D] log-decay (<= 0)
+    u: torch.Tensor,     # [BH, D]
+) -> torch.Tensor:
+    """K3's own arithmetic in plain PyTorch: the recurrence of
+    ``wkv6_chunk_ref`` from a zero state, walked in sub-chunks of ``SUB``
+    steps with local cumulative log-decays c (every exponent <= 0)::
+
+        o  = q̂ S + score v,      q̂_t = q_t ⊙ exp(c_{t-1})
+        S <- diag(exp(c_τ)) S + k̂ᵀ v,   k̂_s = k_s ⊙ exp(c_τ - c_s)
+
+    with the score of ``_subchunk_score``.  As in the kernel, c is summed
+    in log2 units in step order, each term lw·log2(e) rounded to float32,
+    and every exponential is a power of 2 of a float32 difference; the
+    three products are split into TF32 parts exactly as the kernel's tensor
+    cores take them (3xTF32).  Three things differ from the kernel: sums of
+    products run in another order, PyTorch rounds them to nearest where the
+    tensor cores truncate, and ``torch.exp2`` is rounded more tightly than
+    the kernel's ``ex2.approx`` (2 ulp).  Steps past T are padded with zeros
+    (lw = 0).  Output in q's type."""
+    bh, t, d = q.shape
+    pad = (-t) % SUB
+    qf, kf, vf, lf = (torch.nn.functional.pad(a.float(), (0, 0, 0, pad))
+                      for a in (q, k, v, lw))
+    l2 = lf * LOG2E                                      # rounded to float32
+    uf = u.float()
+    s_state = torch.zeros((bh, d, d), dtype=torch.float32, device=q.device)
+    outs = []
+    for t0 in range(0, t + pad, SUB):
+        qs, ks, vs = (a[:, t0:t0 + SUB] for a in (qf, kf, vf))
+        run = torch.zeros((bh, d), dtype=torch.float32, device=q.device)
+        c_prev, c = [], []                               # c_{t-1}, c_t
+        for i in range(SUB):
+            c_prev.append(run)
+            run = run + l2[:, t0 + i]
+            c.append(run)
+        c_prev, c = torch.stack(c_prev, 1), torch.stack(c, 1)
+        c_tau = c[:, -1:]
+        o = _mm_3xtf32(qs * torch.exp2(c_prev), s_state)
+        o = o + _mm_3xtf32(_subchunk_score(qs, ks, uf, c, c_prev), vs)
+        k_hat = ks * torch.exp2(c_tau - c)
+        s_state = (torch.exp2(c_tau).transpose(1, 2) * s_state
+                   + _mm_3xtf32(k_hat.transpose(1, 2), vs))
+        outs.append(o)
+    return torch.cat(outs, dim=1)[:, :t].to(q.dtype)
+
+
+def wkv6_inputs(g: torch.Generator, bh: int, t: int, d: int, device,
+                model_decay: bool = False):
+    """q, k, v, lw, u for checking K3, drawn from ``g`` as the reference
+    kernel test draws them: log-decays <= 0, strong and weak decay mixed.
+    ``model_decay`` draws the log-decays from rwkv6-7b's own range instead
+    (decay base -5: w near 0.993, a memory of ~150 steps), where the f32
+    state grows largest."""
+    q, k, v = (torch.randn((bh, t, d), generator=g, device=device) * 0.5
+               for _ in range(3))
+    z = torch.randn((bh, t, d), generator=g, device=device)
+    lw = -torch.exp(z * 0.5 - 5 if model_decay else z - 1)
+    u = torch.randn((bh, d), generator=g, device=device) * 0.5
+    return q, k, v, lw, u

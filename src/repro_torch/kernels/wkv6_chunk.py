@@ -2,11 +2,14 @@
 (``csrc/wkv6.cu``).
 
 K3 replaces the Pallas TPU kernel ``wkv6_pallas`` of
-``repro.kernels.wkv6_chunk``: it computes the same function (zero initial
-state, f32 state, output in q's type) but not the TPU kernel's chunked
-block structure, and it takes any T, so nothing is padded.  The source is
-compiled on first use (``build.build_library``) and called through
-``ctypes`` on PyTorch's current stream.
+``repro.kernels.wkv6_chunk`` and computes the same function (zero initial
+state, f32 state, output in q's type).  It uses the TPU kernel's sub-chunk
+algebra (16 steps a sub-chunk, local cumulative decays, every exponent
+≤ 0), with the products on the tensor cores in 3xTF32 and the inputs
+staged by asynchronous copies; ``ref.wkv6_subchunk_ref`` repeats that
+arithmetic in plain PyTorch.  It takes any T and any alignment, so nothing
+is padded.  The source is compiled on first use (``build.build_library``)
+and called through ``ctypes`` on PyTorch's current stream.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import torch
 
 from .build import CSRC, build_library
 
-__all__ = ["build", "wkv6_cuda", "MAX_HEAD_DIM"]
+__all__ = ["bind", "build", "wkv6_cuda", "MAX_HEAD_DIM"]
 
 _SRC = CSRC / "wkv6.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -31,14 +34,19 @@ def build():
     return build_library(_SRC)
 
 
+def bind(path):
+    """Load a built K3 library and declare its C entry ``wkv6_forward``."""
+    lib = ctypes.CDLL(str(path))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.wkv6_forward.argtypes = [vp] * 6 + [ci] * 4 + [vp]
+    lib.wkv6_forward.restype = ci
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.wkv6_forward.argtypes = [vp] * 6 + [ci] * 4 + [vp]
-        lib.wkv6_forward.restype = ci
-        _lib = lib
+        _lib = bind(build())
     return _lib
 
 
@@ -53,8 +61,9 @@ def wkv6_cuda(
 
     Raises on anything the kernel does not take: a non-CUDA tensor, mixed
     devices or types, a type other than float32/bfloat16, D > 128, wrong
-    shapes, a non-contiguous tensor, or a launch the CUDA runtime
-    refuses."""
+    shapes, a non-contiguous tensor, or a shared-memory opt-in or launch
+    the CUDA runtime refuses.  A tensor whose address is not 16-byte
+    aligned is taken: the kernel stages it with narrower copies."""
     tensors = (q, k, v, lw, u)
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
         raise ValueError("wkv6_cuda needs every tensor on one CUDA device, "

@@ -84,19 +84,67 @@ def test_cuda_k2_matches_plain_version(s, c, bm, h, f, counts, dtype,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bh,t,d", [(2, 128, 64), (1, 256, 128),
                                     (4, 128, 128), (1, 100, 64),
-                                    (3, 37, 40)])
-def test_cuda_k3_matches_plain_version(bh, t, d, dtype):
+                                    (3, 37, 40), (2, 1, 64), (2, 15, 64),
+                                    (2, 17, 128), (2, 33, 40), (1, 50, 7)])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset1"])
+def test_cuda_k3_matches_plain_version(bh, t, d, dtype, offset):
+    """K3 against its plain version, at the sub-chunk edges (T 1, 15, 17),
+    narrow and odd D, and with ``offset`` elements between the allocation
+    and each tensor, so that no address is 16-byte aligned: the kernel
+    stages such tensors with narrower copies and gives the same result."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (K3 is a CUDA kernel)")
     rng = np.random.default_rng(bh * 100 + t)
     q, k, v = (rng.standard_normal((bh, t, d)) * 0.5 for _ in range(3))
     lw = -np.exp(rng.standard_normal((bh, t, d)) - 1.0)
     u = rng.standard_normal((bh, d)) * 0.5
-    q, k, v, lw, u = (torch.tensor(a, dtype=dtype, device="cuda")
-                      for a in (q, k, v, lw, u))
+
+    def on_card(a):
+        flat = torch.empty(a.size + offset, dtype=dtype, device="cuda")
+        x = flat[offset:].view(a.shape)
+        x.copy_(torch.tensor(a, dtype=dtype))
+        return x
+
+    q, k, v, lw, u = (on_card(a) for a in (q, k, v, lw, u))
+    assert (q.data_ptr() % 16 != 0) == bool(offset)
     got = ops.wkv6(q, k, v, lw, u)
     expect = ref.wkv6_chunk_ref(q, k, v, torch.exp(lw.float()), u)[0]
     assert got.dtype == dtype and got.shape == (bh, t, d)
+    assert not bool(torch.isnan(got).any())
     tol = dict(rtol=5e-2, atol=5e-2) if dtype == torch.bfloat16 \
         else dict(rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got.float(), expect.float(), **tol)
+
+
+@pytest.mark.gpu
+def test_cuda_k3_repeats_bit_for_bit():
+    """Every sum in K3 has a fixed order: two launches agree exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K3 is a CUDA kernel)")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    q, k, v = (torch.randn((8, 300, 64), generator=g, device="cuda")
+               for _ in range(3))
+    lw = -torch.exp(torch.randn((8, 300, 64), generator=g, device="cuda"))
+    u = torch.randn((8, 64), generator=g, device="cuda")
+    assert torch.equal(ops.wkv6(q, k, v, lw, u), ops.wkv6(q, k, v, lw, u))
+
+
+@pytest.mark.gpu
+def test_cuda_k3_as_accurate_as_plain_f32():
+    """At rwkv6-7b's forward geometry and decays, K3 is about as close to the
+    recurrence in float64 as the f32 plain version is: the tensor cores'
+    truncating accumulation does not build up in the state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K3 is a CUDA kernel)")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    q, k, v, lw, u = ref.wkv6_inputs(g, 256, 2048, 64, "cuda",
+                                     model_decay=True)
+    exact = ref.wkv6_chunk_ref(q.double(), k.double(), v.double(),
+                               torch.exp(lw.double()), u.double())[0]
+    plain = ref.wkv6_chunk_ref(q, k, v, torch.exp(lw), u)[0]
+    got = ops.wkv6(q, k, v, lw, u)
+    err, err_plain = ((a.double() - exact).abs().max().item()
+                      for a in (got, plain))
+    assert err <= 1.5 * err_plain, (err, err_plain)
