@@ -14,8 +14,8 @@ Phases, in order; any failure raises and exits nonzero:
      F 1024, the flat buffer the path builds for the serving batch);
      (c) ragged H and F.  Tolerances: f32 2e-5 at (a) and (c), 1e-4 at (b)
      (sums 2048 and 1024 long, taken in another order), bf16 2e-2; rows
-     outside every group must be exact zeros.  Times K1 and the plain
-     version at (b);
+     outside every group must be exact zeros.  Times K1 (the weight-streaming
+     up and down kernels, one call) and the plain version at (b);
   4. serve olmoe-1b-7b at full width and depth (16 layers, 64 experts,
      f32 weights drawn on the card from a seeded generator) through
      ``ServingSession``: every request finishes, no overflow, and K1 ran in
@@ -132,13 +132,6 @@ def flat_layout(counts, bm: int, n: int, device):
     return start.to(device), (start + counts).to(device)
 
 
-def random_weights(g: torch.Generator, s: int, h: int, f: int, device):
-    def rnd(*shape, scale):
-        return torch.randn(shape, generator=g, device=device) * scale
-    return (rnd(s, h, f, scale=h ** -0.5), rnd(s, h, f, scale=h ** -0.5),
-            rnd(s, f, h, scale=f ** -0.5))
-
-
 def check_k1(label, x, start, end, weights, activation, bm, tol) -> float:
     from repro_torch.kernels import ops, ref
     out = ops.grouped_ffn_flat(x, start, end, *weights,
@@ -156,32 +149,11 @@ def check_k1(label, x, start, end, weights, activation, bm, tol) -> float:
     return e
 
 
-def decode_flat_buffer(g: torch.Generator, cfg, batch: int, device):
-    """The flat buffer, group starts and ends that the serving path builds
-    for one MoE layer of a ``batch``-token decode step of ``cfg``."""
-    from repro_torch.engine import MicroEPEngine
-    from repro_torch.moe import dispatch as D
-    from repro_torch.moe.router import top_k_gating
-    # the single-device group and layout of decoder.local_moe_apply
-    spec = MicroEPEngine.build(cfg.num_experts, (1, 1), device=device
-                               ).moe_spec(batch, cfg.top_k, bm=8)
-    st = spec.statics
-    x = torch.randn((batch, cfg.d_model), generator=g, device=device)
-    router = torch.randn((cfg.d_model, cfg.num_experts), generator=g,
-                         device=device) * cfg.d_model ** -0.5
-    r = top_k_gating(x, router, cfg.top_k)
-    ex = r.expert_ids.reshape(-1)
-    cnt = torch.zeros(cfg.num_experts + 1, dtype=torch.int64,
-                      device=device).scatter_add_(0, ex, torch.ones_like(ex))
-    sched = spec.scheduler(cnt[:cfg.num_experts, None])
-    plan = D.make_plan(st, ex, sched.flow, 0)
-    flat = D.dispatch(st, plan, x.repeat_interleave(cfg.top_k, dim=0))
-    return flat, plan.group_start, plan.group_end
-
-
 def phase_k1(cfg, batch: int, device) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.grouped_matmul import grouped_ffn_flat_cuda
+    from repro_torch.launch.time_k1 import (decode_flat_buffer, k1_bound,
+                                            random_weights)
     g = torch.Generator(device=device)
     g.manual_seed(1234)
     acts = ("swiglu", "geglu", "relu_sq")
@@ -223,19 +195,12 @@ def phase_k1(cfg, batch: int, device) -> dict:
     counts = end_b - start_b
     n_active = int((counts > 0).sum())
     rows = int(counts.sum())
-    isz = x_b.element_size()
-    h, f = cfg.d_model, cfg.moe_d_ff
-    # the in-group rows of x read once (rows outside every group are zeros
-    # whatever x holds), every row of out written once, each active
-    # expert's three matrices read once, tile_gid and group_end (int32)
-    nbytes = (rows * h * isz + x_b.shape[0] * h * isz
-              + n_active * 3 * h * f * isz
-              + (x_b.shape[0] // 8 + cfg.num_experts) * 4)
-    bound_ms, bound_by = k_bound(nbytes, 2 * 3 * rows * h * f)
+    bound_ms, bound_by, _, _ = k1_bound(x_b, start_b, end_b, cfg.num_experts,
+                                        cfg.d_model, cfg.moe_d_ff, 8)
     print(f"  K1 (b) f32 swiglu: {k1_ms:.4f} ms, plain version "
           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
           f"{n_active} active experts x 3·H·F f32, {rows} rows read, "
-          f"N={x_b.shape[0]} rows written)")
+          f"N={x_b.shape[0]} rows written; {bound_ms / k1_ms:.1%} reached)")
     grouped_ffn_flat_cuda.launches = 0     # comparison launches do not count
     return {"name": "grouped_ffn_flat", "route": "cuda",
             "source": "src/repro_torch/csrc/grouped_ffn_flat.cu",
@@ -410,6 +375,7 @@ def decode_slot_counts(g: torch.Generator, cfg, batch: int, device):
 def phase_k2(cfg, batch: int, device) -> dict:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.grouped_matmul import grouped_ffn_cuda
+    from repro_torch.launch.time_k1 import random_weights
     g = torch.Generator(device=device)
     g.manual_seed(4321)
     cases = []

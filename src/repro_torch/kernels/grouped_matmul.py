@@ -11,9 +11,14 @@ group end is ``s·C + counts[s]`` and row tile i belongs to slot
 index map, so K2 adds no device code: tiles wholly past their slot's count
 return at once, and every row at or past it is written as exact zeros.
 
-The source is compiled on first use (``build.build_library``) and called
-through ``ctypes`` on PyTorch's current stream.  Each wrapper counts its own
-launches.
+One call launches two kernels of that source on PyTorch's current stream:
+the up kernel writes h = act(x·Wg) ⊙ (x·Wu) in f32 to a scratch buffer
+allocated here through torch, and the down kernel, launched as its
+programmatic dependant, streams Wd and writes h·Wd.  ``ref.
+grouped_ffn_flat_blocked_ref`` repeats their blocking and summation order in
+plain PyTorch.  The source is compiled on first use
+(``build.build_library``) and called through ``ctypes``.  Each wrapper
+counts its own calls, one launch of the pair each.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import torch
 
 from .build import CSRC, build_library
 
-__all__ = ["build", "grouped_ffn_flat_cuda", "grouped_ffn_cuda",
+__all__ = ["bind", "build", "grouped_ffn_flat_cuda", "grouped_ffn_cuda",
            "ACTIVATIONS"]
 
 _SRC = CSRC / "grouped_ffn_flat.cu"
@@ -40,16 +45,22 @@ def build():
     return build_library(_SRC)
 
 
+def bind(path):
+    """Load a built K1 library and declare its C entries
+    ``grouped_ffn_flat`` and ``grouped_ffn_flat_scratch_floats``."""
+    lib = ctypes.CDLL(str(path))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.grouped_ffn_flat.argtypes = [vp] * 8 + [ci] * 6 + [vp]
+    lib.grouped_ffn_flat.restype = ci
+    lib.grouped_ffn_flat_scratch_floats.argtypes = [ci, ci, ci]
+    lib.grouped_ffn_flat_scratch_floats.restype = ctypes.c_longlong
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.grouped_ffn_flat.argtypes = [vp] * 8 + [ci] * 6 + [vp]
-        lib.grouped_ffn_flat.restype = ci
-        lib.grouped_ffn_flat_scratch_floats.argtypes = [ci, ci, ci]
-        lib.grouped_ffn_flat_scratch_floats.restype = ctypes.c_longlong
-        _lib = lib
+        _lib = bind(build())
     return _lib
 
 
@@ -60,7 +71,9 @@ def _launch(kernel: str, x, tile_gid, group_end, w_gate, w_up, w_down,
 
     Raises on anything the kernel does not take: a non-CUDA tensor, mixed
     devices or types, a type other than float32/bfloat16, wrong shapes, a
-    non-contiguous tensor, or a launch the CUDA runtime refuses."""
+    non-contiguous tensor, or a shared-memory opt-in or launch the CUDA
+    runtime refuses.  Weights whose rows are not 16-byte aligned are taken:
+    the kernels stage them with narrower copies."""
     tensors = (x, tile_gid, group_end, w_gate, w_up, w_down)
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
         raise ValueError(f"{kernel} needs every tensor on one CUDA device, "
@@ -91,13 +104,13 @@ def _launch(kernel: str, x, tile_gid, group_end, w_gate, w_up, w_down,
     if n == 0:
         return out
     lib = _load()
-    partial = torch.empty(lib.grouped_ffn_flat_scratch_floats(n, h, f),
+    scratch = torch.empty(lib.grouped_ffn_flat_scratch_floats(n, h, f),
                           dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.grouped_ffn_flat(
         x.data_ptr(), tile_gid.data_ptr(), group_end.data_ptr(),
         w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-        out.data_ptr(), partial.data_ptr(), n, h, f, bm, _DTYPES[x.dtype],
+        out.data_ptr(), scratch.data_ptr(), n, h, f, bm, _DTYPES[x.dtype],
         ACTIVATIONS[activation], stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")

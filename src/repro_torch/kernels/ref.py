@@ -12,7 +12,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["grouped_ffn_ref", "grouped_ffn_flat_ref", "wkv6_chunk_ref",
+__all__ = ["grouped_ffn_ref", "grouped_ffn_flat_ref",
+           "grouped_ffn_flat_blocked_ref", "wkv6_chunk_ref",
            "wkv6_subchunk_ref", "wkv6_inputs"]
 
 
@@ -70,6 +71,103 @@ def grouped_ffn_flat_ref(
     out_s = torch.einsum("snf,sfh->snh", _act(hg, hu, activation),
                          w_down.float())
     out = torch.einsum("sn,snh->nh", member.float(), out_s)
+    return out.to(x.dtype)
+
+
+K1_ROWS = 8                 # K1's rows per work item
+K1_UP_SPLIT = 16            # up kernel: k-groups, each 2 of a stage's 32 H rows
+K1_DN_SPLIT = 8             # down kernel: k-groups, each 2 of a stage's 16 F rows
+
+
+def _k1_gated(g: torch.Tensor, u: torch.Tensor, activation: str):
+    """The activation as K1 writes it (same expressions and order)."""
+    if activation == "swiglu":
+        return g / (1.0 + torch.exp(-g)) * u
+    if activation == "geglu":
+        c = 0.7978845608028654
+        return 0.5 * g * (1.0 + torch.tanh(c * (g + 0.044715 * g * g * g))) * u
+    if activation == "relu_sq":
+        r = torch.clamp_min(g, 0.0)
+        return r * r * u
+    raise ValueError(activation)
+
+
+def _k1_split_sums(x: torch.Tensor, w: torch.Tensor, split: int):
+    """x [I, R, K] · w [I, K, C] as K1's threads take it: ``split`` k-groups,
+    group j summing rows 2j and 2j + 1 of every stage of 2·split rows, stage
+    after stage, each multiply-add rounded once to float32 (as ``fmaf``; the
+    sum is formed in float64, which differs only on rare double-rounding
+    ties).  K is zero-padded to whole stages, as the kernel's copies do.
+    Returns the groups' partial sums, [split, I, R, C]."""
+    i, r, k = x.shape
+    c = w.shape[2]
+    pad = (-k) % (2 * split)
+    xs = F.pad(x.float(), (0, pad)).double().view(i, r, -1, split, 2)
+    ws = F.pad(w.float(), (0, 0, 0, pad)).double().view(i, -1, split, 2, c)
+    acc = torch.zeros((split, i, r, c), dtype=torch.float32, device=x.device)
+    for s in range(xs.shape[2]):
+        for j in range(2):
+            prod = (xs[:, :, s, :, j].permute(2, 0, 1)[..., None]
+                    * ws[:, s, :, j, :].permute(1, 0, 2)[:, :, None, :])
+            acc = (acc.double() + prod).float()
+    return acc
+
+
+def grouped_ffn_flat_blocked_ref(
+    x: torch.Tensor,            # [N, H] rows sorted by group, bm-aligned starts
+    group_start: torch.Tensor,  # int[S]
+    group_end: torch.Tensor,    # int[S]
+    w_gate: torch.Tensor,       # [S, H, F]
+    w_up: torch.Tensor,         # [S, H, F]
+    w_down: torch.Tensor,       # [S, F, H]
+    activation: str = "swiglu",
+    bm: int = 128,
+) -> torch.Tensor:
+    """K1's own blocking and summation order in plain PyTorch
+    (``csrc/grouped_ffn_flat.cu``), the same function as
+    ``grouped_ffn_flat_ref``.
+
+    Work items are ``K1_ROWS`` rows of one bm-row tile.  Up: 16 k-groups
+    each sum 2 of every 32 H rows, as ``fmaf`` chains; the groups are added
+    in pairs (2w, 2w + 1), the 8 pair sums in order; h = act(g) · u by the
+    kernel's expressions, kept in float32.  Down: 8 k-groups each sum 2 of
+    every 16 F rows of h · Wd; their partials are added in order.  Rows
+    outside every group are exact zeros; the output is in x's type.  What
+    can differ from the kernel: the rare double-rounding tie of the emulated
+    ``fmaf``, and the last bits of exp / tanh."""
+    n, h = x.shape
+    dev = x.device
+    nsub = -(-bm // K1_ROWS)
+    tiles = torch.arange(n // bm, device=dev) * bm
+    tile_gid = (torch.searchsorted(group_start.to(torch.int64), tiles,
+                                   right=True) - 1).clamp(0, w_gate.shape[0] - 1)
+    item = torch.arange(n // bm * nsub, device=dev)
+    tile, sub = item // nsub, item % nsub
+    row0 = tile * bm + sub * K1_ROWS
+    rows = (bm - sub * K1_ROWS).clamp(max=K1_ROWS)
+    gid = tile_gid[tile]
+    nr = torch.minimum(rows, group_end.to(torch.int64)[gid] - row0).clamp(min=0)
+    live = nr > 0
+    row0, nr, gid = row0[live], nr[live], gid[live]
+    r = torch.arange(K1_ROWS, device=dev)
+    valid = r[None, :] < nr[:, None]                             # [I, R]
+    idx = (row0[:, None] + r).clamp(max=n - 1)
+    xi = torch.where(valid[..., None], x[idx].float(), 0.0)      # [I, R, H]
+
+    g = _k1_split_sums(xi, w_gate[gid], K1_UP_SPLIT)
+    u = _k1_split_sums(xi, w_up[gid], K1_UP_SPLIT)
+    g, u = g[0::2] + g[1::2], u[0::2] + u[1::2]                  # warp pairs
+    gs, us = g[0], u[0]
+    for w in range(1, g.shape[0]):
+        gs, us = gs + g[w], us + u[w]
+    hid = torch.where(valid[..., None], _k1_gated(gs, us, activation), 0.0)
+
+    d = _k1_split_sums(hid, w_down[gid], K1_DN_SPLIT)
+    o = d[0]
+    for w in range(1, d.shape[0]):
+        o = o + d[w]
+    out = torch.zeros((n, h), dtype=torch.float32, device=dev)
+    out[idx[valid]] = o[valid]
     return out.to(x.dtype)
 
 

@@ -1,5 +1,6 @@
 """Tests of the port that need the card: K1, K2 and K3 (CUDA kernels, with
-no CPU or interpret mode) against their plain versions on the same inputs.
+no CPU or interpret mode) against their plain versions on the same inputs,
+and K1 and K3 against their own arithmetic in plain PyTorch.
 They skip without a CUDA device.  This file imports no JAX, so it also runs where JAX
 is not installed:
 
@@ -52,6 +53,127 @@ def test_cuda_k1_matches_plain_version(bm, counts, h, f, dtype, activation):
     rows = torch.arange(len(x), device="cuda")[None, :]
     member = ((rows >= start[:, None]) & (rows < end[:, None])).any(0)
     assert bool((got[~member] == 0).all())
+
+
+def _on_card(case, dtype):
+    x, start, end, wg, wu, wd = case
+    x, wg, wu, wd = (torch.tensor(a, dtype=dtype, device="cuda")
+                     for a in (x, wg, wu, wd))
+    start, end = (torch.tensor(a, device="cuda") for a in (start, end))
+    return x, start, end, wg, wu, wd
+
+
+def _member(x, start, end):
+    rows = torch.arange(len(x), device=x.device)[None, :]
+    return ((rows >= start[:, None]) & (rows < end[:, None])).any(0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "relu_sq"])
+def test_cuda_k1_decode_geometry(activation):
+    """The flat buffer the serving path builds for one MoE layer of a
+    4-token olmoe-1b-7b decode step (S 64, H 2048, F 1024, bm 8), f32:
+    within 1e-4 of the plain version (sums 2048 and 1024 long, taken in
+    another order), zeros exact outside every group."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 is a CUDA kernel)")
+    from repro_torch.configs import get_config
+    from repro_torch.launch.time_k1 import decode_flat_buffer, random_weights
+    cfg = get_config("olmoe-1b-7b")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(21)
+    x, start, end = decode_flat_buffer(g, cfg, 4, "cuda")
+    w = random_weights(g, cfg.num_experts, cfg.d_model, cfg.moe_d_ff, "cuda")
+    got = ops.grouped_ffn_flat(x, start, end, *w, activation=activation, bm=8)
+    expect = ref.grouped_ffn_flat_ref(x, start, end, *w, activation=activation)
+    torch.testing.assert_close(got, expect, rtol=1e-4, atol=1e-4)
+    assert bool((got[~_member(x, start, end)] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_k1_k2_repeat_bit_for_bit(kernel, dtype):
+    """Every sum in K1 (and K2, its device code) has a fixed order and no
+    atomics: two calls agree exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 is a CUDA kernel)")
+    if kernel == "K1":
+        args = _on_card(_flat_case(7, 8, [3, 0, 8, 1, 5, 2], 512, 384), dtype)
+        run = lambda: ops.grouped_ffn_flat(*args, bm=8)        # noqa: E731
+    else:
+        rng = np.random.default_rng(8)
+        x = torch.tensor(rng.standard_normal((6, 16, 512)) * 0.5, dtype=dtype,
+                         device="cuda")
+        w = [torch.tensor(rng.standard_normal(shape) * 0.05, dtype=dtype,
+                          device="cuda")
+             for shape in ((6, 512, 384), (6, 512, 384), (6, 384, 512))]
+        cnt = torch.tensor([0, 16, 3, 9, 1, 12], device="cuda")
+        run = lambda: ops.grouped_ffn(x, cnt, *w, bm=8)        # noqa: E731
+    first = run()
+    assert torch.equal(first, run())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,f", [(200, 300), (199, 301), (64, 30)],
+                         ids=["rows-8B-in-bf16", "odd-rows", "narrow-f"])
+def test_cuda_k1_unaligned_weight_rows(h, f, dtype):
+    """Weight and x rows that are not 16-byte aligned (bf16 F 300: 600 B;
+    odd H and F: 4-byte rows in f32, 2-byte in bf16) are staged with
+    narrower copies or plain loads and give the plain version's result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 is a CUDA kernel)")
+    x, start, end, wg, wu, wd = _on_card(
+        _flat_case(9, 8, [5, 0, 8, 2], h, f), dtype)
+    for activation in ("swiglu", "geglu", "relu_sq"):
+        got = ops.grouped_ffn_flat(x, start, end, wg, wu, wd,
+                                   activation=activation, bm=8)
+        expect = ref.grouped_ffn_flat_ref(x, start, end, wg, wu, wd,
+                                          activation=activation)
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        torch.testing.assert_close(got.float(), expect.float(), **tol)
+        assert bool((got[~_member(x, start, end)] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bm,counts", [(4, [3, 0, 4, 1]), (12, [11, 0, 12, 5]),
+                                       (24, [17, 3, 0, 24])])
+def test_cuda_k1_any_bm(bm, counts):
+    """Row tiles of other sizes than the 8-row work item: smaller (4), and
+    not a multiple of it (12, 24 → a last item of 4 or 8 rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 is a CUDA kernel)")
+    x, start, end, wg, wu, wd = _on_card(_flat_case(10, bm, counts, 96, 160),
+                                         torch.float32)
+    got = ops.grouped_ffn_flat(x, start, end, wg, wu, wd, bm=bm)
+    expect = ref.grouped_ffn_flat_ref(x, start, end, wg, wu, wd)
+    torch.testing.assert_close(got, expect, **F32_TOL)
+    assert bool((got[~_member(x, start, end)] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "relu_sq"])
+@pytest.mark.parametrize("bm,counts,h,f", [
+    (8, [3, 0, 9, 1, 0, 4], 200, 300),
+    (128, [100, 0, 250], 128, 512),
+    (4, [3, 0, 4, 1], 96, 160),
+], ids=["bm8-ragged", "bm128", "bm4"])
+def test_cuda_k1_matches_its_blocking(bm, counts, h, f, activation):
+    """K1 against its own blocking and summation order in plain PyTorch
+    (``ref.grouped_ffn_flat_blocked_ref``): the same sums in the same order,
+    so they agree to 1e-6, 20 times inside the check against the plain
+    version; only the last bits of exp / tanh and rare double-rounding ties
+    of the emulated fmaf differ."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 is a CUDA kernel)")
+    x, start, end, wg, wu, wd = _on_card(_flat_case(11, bm, counts, h, f),
+                                         torch.float32)
+    got = ops.grouped_ffn_flat(x, start, end, wg, wu, wd,
+                               activation=activation, bm=bm)
+    expect = ref.grouped_ffn_flat_blocked_ref(x, start, end, wg, wu, wd,
+                                              activation=activation, bm=bm)
+    torch.testing.assert_close(got, expect, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.gpu

@@ -172,3 +172,57 @@ def test_k2_rejects_cpu_tensors_and_unaligned_capacity():
         grouped_ffn_cuda(*t, bm=8)
     with pytest.raises(ValueError, match="multiple of bm"):
         grouped_ffn_cuda(*t, bm=16)
+
+
+# ------------------------------- K1's own blocking and summation order
+
+
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "relu_sq"])
+@pytest.mark.parametrize("oracle", ["pallas-interpret", "ref"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bm,counts,h,f", [
+    (8, [3, 0, 9, 1, 0, 4], 200, 300),
+    (128, [100, 0, 250], 128, 256),
+], ids=["bm8-ragged", "bm128"])
+def test_blocked_k1_matches_reference(bm, counts, h, f, dtype, oracle,
+                                      activation):
+    """``ref.grouped_ffn_flat_blocked_ref``, K1's work items, k-groups and
+    summation order in plain PyTorch, against the JAX reference: the Pallas
+    kernel in interpret mode tiled at the same bm, or the jnp oracle.
+    Ragged H and F, empty groups; rows outside every group exact zeros."""
+    x, start, end, wg, wu, wd = _flat_case(13, bm, counts, h, f)
+    if dtype == "bfloat16":
+        x, wg, wu, wd = map(_bf16, (x, wg, wu, wd))
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    jargs = (jnp.asarray(x, jdt), jnp.asarray(start), jnp.asarray(end),
+             *(jnp.asarray(a, jdt) for a in (wg, wu, wd)))
+    if oracle == "ref":
+        expect = ref.grouped_ffn_flat_ref(*jargs, activation)
+    else:
+        expect = ops.grouped_ffn_flat(*jargs, activation=activation,
+                                      impl="interpret", bm=bm, bf=128)
+    got = tref.grouped_ffn_flat_blocked_ref(
+        torch.tensor(x, dtype=tdt), torch.tensor(start), torch.tensor(end),
+        *(torch.tensor(a, dtype=tdt) for a in (wg, wu, wd)),
+        activation=activation, bm=bm)
+    assert got.dtype == tdt and got.shape == x.shape
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    out = got.float().numpy()
+    np.testing.assert_allclose(out, np.asarray(expect, np.float32), **tol)
+    member = np.zeros(len(x), bool)
+    for a, b in zip(start, end):
+        member[a:b] = True
+    assert (out[~member] == 0.0).all()
+    assert (np.abs(out[member]).max(axis=1) > 0).all()
+
+
+@pytest.mark.parametrize("bm,counts", [(4, [3, 0, 4, 1]), (12, [11, 0, 12, 5])])
+def test_blocked_k1_items_across_tiles(bm, counts):
+    """Row tiles smaller than the 8-row work item, or not a multiple of it
+    (a last item of 4 rows): the blocking still covers every row once."""
+    x, start, end, wg, wu, wd = _flat_case(14, bm, counts, 40, 48)
+    t = [torch.tensor(a) for a in (x, start, end, wg, wu, wd)]
+    got = tref.grouped_ffn_flat_blocked_ref(*t, bm=bm)
+    expect = tref.grouped_ffn_flat_ref(*t)
+    np.testing.assert_allclose(got.numpy(), expect.numpy(), **F32_TOL)
