@@ -6,8 +6,10 @@
 Phases, in order; any failure raises and exits nonzero:
   1. environment: torch / CUDA versions and the card's name and power limit;
      TF32 off for matrix products and convolutions (full f32 products);
-  2. build K1/K2 (``src/repro_torch/csrc/grouped_ffn_flat.cu``) and K3
-     (``src/repro_torch/csrc/wkv6.cu``) with nvcc, both started together;
+  2. build K1/K2 (``src/repro_torch/csrc/grouped_ffn_flat.cu``), K3
+     (``src/repro_torch/csrc/wkv6.cu``) and K4
+     (``src/repro_torch/csrc/microep_sched.cu``) with nvcc, all three
+     started together;
   3. K1 against its plain PyTorch version on the card, f32 and bf16, all
      three activations: (a) bm 128, S 3, H 128, F 512, counts [100, 0, 250];
      (b) the olmoe-1b-7b decode geometry of phase 4 (bm 8, S 64, H 2048,
@@ -18,9 +20,11 @@ Phases, in order; any failure raises and exits nonzero:
      up and down kernels, one call) and the plain version at (b);
   4. serve olmoe-1b-7b at full width and depth (16 layers, 64 experts,
      f32 weights drawn on the card from a seeded generator) through
-     ``ServingSession``: every request finishes, no overflow, and K1 ran in
-     every MoE layer of every step (launch count = (steps + warm-up) x 16);
-     then the decode step's time split into scheduler, K1 and the rest;
+     ``ServingSession``: every request finishes, no overflow, and K1 and K4
+     (the scheduler) ran in every MoE layer of every step (each launch
+     count = (steps + warm-up) x 16) while the plain scheduler ran not
+     once; then the decode step's time split into scheduler, K1 and the
+     rest;
   5. the whole path on the card against the CPU on paper-gpt-32x1.3b
      smoke with identical weights: identical tokens per request;
   6. K2 (the slot-layout grouped FFN, entry point ``ops.grouped_ffn``)
@@ -47,7 +51,17 @@ Phases, in order; any failure raises and exits nonzero:
      next-token labels) on the same batch; K3 launched 32 times a forward;
      wall time per forward, the loss and the peak device memory;
   9. the forward on the card against the CPU on rwkv6-7b smoke with
-     identical weights and tokens: logits within 1e-4.
+     identical weights and tokens: logits within 1e-4;
+ 10. K4 (the MicroEP scheduler, entry point ``ops.schedule``) against its
+     plain version on the cases of ``launch/time_k4.py``: the olmoe-1b-7b
+     decode geometry (E 64, G 1, R 1, counts of 4 tokens routed top-8),
+     the paper's group (E 64 on 4 x 4 devices, 2-3 replicas an expert on
+     a seeded placement) and greedy sequencing (E 16 on 2 x 4); three
+     micro-batches with the warm start carried and three cold ones;
+     x_int, flow and max_load equal, x within 1e-5, balance within 1e-6.
+     Times K4 (mean of 20 launches queued behind a spin kernel, and paced
+     by its host work) and the plain version at the olmoe and paper
+     geometries.
 The last two lines are the kernels' JSON record and the result object.
 """
 from __future__ import annotations
@@ -272,8 +286,12 @@ def step_split(model, cfg, serve_cfg, device) -> dict:
             "scheduler_ms": sched_ms, "k1_ms": k1_ms, "rest_ms": rest}
 
 
-def phase_serve(cfg, serve_cfg, device) -> int:
+def phase_serve(cfg, serve_cfg, device):
+    """-> (K1 launches, K4 launches) of the served run."""
+    from repro_torch.core import solver
+    from repro_torch.kernels import ref
     from repro_torch.kernels.grouped_matmul import grouped_ffn_flat_cuda
+    from repro_torch.kernels.sched import schedule_cuda
     from repro_torch.models import decoder as dec
     from repro_torch.serve import ServingSession, poisson_trace
     t0 = time.perf_counter()
@@ -289,15 +307,36 @@ def phase_serve(cfg, serve_cfg, device) -> int:
                              gen_len=8, seed=1)
     sess = ServingSession(cfg, serve_cfg, device=device, model=model)
 
-    grouped_ffn_flat_cuda.launches = 0          # just before the main path
-    rep = sess.run(requests)
-    launches = grouped_ffn_flat_cuda.launches   # just after it
+    # the plain scheduler, counted: it must not run on the card path
+    plain_calls = {"schedule_ref": 0, "water_fill": 0}
+    originals = {(ref, "schedule_ref"): ref.schedule_ref,
+                 (solver, "water_fill"): solver.water_fill}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            plain_calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for (mod, name), fn in originals.items():
+        setattr(mod, name, counted(name, fn))
+    try:
+        grouped_ffn_flat_cuda.launches = 0      # just before the main path
+        schedule_cuda.launches = 0
+        rep = sess.run(requests)
+        launches = grouped_ffn_flat_cuda.launches   # just after it
+        k4_launches = schedule_cuda.launches
+    finally:
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
     for line in rep.summary().splitlines():
         print("  " + line)
     n_moe = dec.n_moe_layers(cfg)
     expect = (rep.decode_steps + 1) * n_moe     # + the warm-up step
     print(f"  {rep.decode_steps} decode steps + 1 warm-up, K1 launches "
-          f"{launches} (expected {expect})")
+          f"{launches}, K4 launches {k4_launches} (expected {expect} each); "
+          f"plain scheduler calls {plain_calls['schedule_ref']}, plain "
+          f"water-fills {plain_calls['water_fill']}")
     require(len(rep.records) == len(requests) and rep.rejected == 0,
             f"served {len(rep.records)} of {len(requests)} requests")
     require(all(r.n_generated == q.max_new
@@ -306,9 +345,13 @@ def phase_serve(cfg, serve_cfg, device) -> int:
     require(rep.overflow == 0.0, f"overflow {rep.overflow}")
     require(launches == expect,
             f"K1 launched {launches} times, expected {expect}")
+    require(k4_launches == expect,
+            f"K4 launched {k4_launches} times, expected {expect}")
+    require(not any(plain_calls.values()),
+            f"the plain scheduler ran on the card path: {plain_calls}")
     step_split(model, cfg, serve_cfg, device)
     del sess, model   # frees the 27 GB model before the later phases
-    return launches
+    return launches, k4_launches
 
 
 # ------------------------------------------------- phase 5: card vs CPU
@@ -317,6 +360,7 @@ def phase_serve(cfg, serve_cfg, device) -> int:
 def phase_parity(cfg, device) -> None:
     from repro_torch.engine import ServeConfig
     from repro_torch.kernels.grouped_matmul import grouped_ffn_flat_cuda
+    from repro_torch.kernels.sched import schedule_cuda
     from repro_torch.models import decoder as dec
     from repro_torch.serve import ServingSession, replay_trace
     cpu_model = dec.init_params(cfg, seed=0, device="cpu")
@@ -343,6 +387,7 @@ def phase_parity(cfg, device) -> None:
     require(diff < 1e-4, f"card and CPU logits differ by {diff:.3e}")
 
     before = grouped_ffn_flat_cuda.launches
+    before_k4 = schedule_cuda.launches
     reps = {}
     for name, dev, model in (("card", device, gpu_model),
                              ("cpu", "cpu", cpu_model)):
@@ -351,6 +396,8 @@ def phase_parity(cfg, device) -> None:
                                     model=model).run(reqs)
     require(grouped_ffn_flat_cuda.launches > before,
             "the card run did not go through K1")
+    require(schedule_cuda.launches > before_k4,
+            "the card run did not go through K4")
     tok_gpu = [r.tokens for r in reps["card"].records]
     tok_cpu = [r.tokens for r in reps["cpu"].records]
     print(f"  {cfg.name}: {len(tok_gpu)} requests, "
@@ -623,6 +670,31 @@ def phase_forward_parity(cfg, device) -> None:
     require(diff < 1e-4, f"card and CPU logits differ by {diff:.3e}")
 
 
+# ------------------------------------------------------------ phase 10: K4
+
+
+def phase_k4(device) -> dict:
+    from repro_torch.kernels.sched import schedule_cuda
+    from repro_torch.launch import time_k4
+    got = {}
+    for name in time_k4.CASES:
+        try:
+            got[name] = time_k4.measure(
+                name, device, timed=name in ("olmoe-decode", "paper-g16"))
+        except AssertionError as exc:
+            raise SmokeFailure(str(exc)) from exc
+        print("  " + time_k4.describe(name, got[name]))
+    schedule_cuda.launches = 0     # comparison launches do not count
+    m = got["olmoe-decode"]        # the served path's geometry
+    bound_ms, bound_by, _, _ = m["bound"]
+    return {"name": "microep_schedule", "route": "cuda",
+            "source": "src/repro_torch/csrc/microep_sched.cu",
+            "replaces": "src/repro/core/solver_jax.py:231",
+            "launches": 0, "max_abs_err": max(g["err"] for g in got.values()),
+            "ms": m["k4"], "plain_ms": m["plain"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card",
@@ -630,7 +702,7 @@ def main() -> int:
         return 2
     from repro_torch.configs import get_config
     from repro_torch.engine import ServeConfig
-    from repro_torch.kernels import grouped_matmul, wkv6_chunk
+    from repro_torch.kernels import grouped_matmul, sched, wkv6_chunk
     from repro_torch.launch.profile_forward import ARCH, BATCH, SEQ
 
     # 1. environment
@@ -645,9 +717,9 @@ def main() -> int:
 
     # 2. build: one nvcc for each source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         libs = list(pool.map(lambda m: m.build(),
-                             (grouped_matmul, wkv6_chunk)))
+                             (grouped_matmul, wkv6_chunk, sched)))
     print(f"[2] built {', '.join(str(p.relative_to(ROOT)) for p in libs)} "
           f"in {time.perf_counter() - t0:.1f} s")
 
@@ -658,7 +730,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     print("[4] serve olmoe-1b-7b, full width and depth")
-    record["launches"] = phase_serve(olmoe, serve_cfg, device)
+    record["launches"], k4_launches = phase_serve(olmoe, serve_cfg, device)
     torch.cuda.empty_cache()
 
     print("[5] card vs CPU through the whole path")
@@ -681,10 +753,15 @@ def main() -> int:
 
     print("[9] card vs CPU through the forward")
     phase_forward_parity(rwkv.smoke(), device)
+    torch.cuda.empty_cache()
+
+    print("[10] K4 against its plain version")
+    k4 = phase_k4(device)
+    k4["launches"] = k4_launches
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     print(card)
-    print(json.dumps({"kernels": [record, k2, k3]}))
+    print(json.dumps({"kernels": [record, k2, k3, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,6 +5,8 @@ of ``repro.core.scheduler``).
     rounding -> locality-aware routing (Algorithm 1) -> flow tensor F[E, G, R]
 
 The flow tensor plus the placement table is everything the dispatcher needs.
+The whole chain is one call of ``kernels.ops.schedule``: one launch of K4
+on the card, its plain version (``kernels.ref.schedule_ref``) on the CPU.
 Build these objects through :class:`repro_torch.engine.MicroEPEngine`.
 """
 from __future__ import annotations
@@ -15,11 +17,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..kernels import ops, sched
 from .placement import Placement, replica_devices
-from .rounding import round_replica_loads
-from .routing import route_tokens
-from .solver import (SolverState, device_loads, device_onehot,
-                     solve_replica_loads)
+from .solver import SolverState
 
 __all__ = ["SchedStatics", "Schedule", "Scheduler"]
 
@@ -80,7 +80,13 @@ class Scheduler:
         self.device = torch.device(device)
         self.dev = torch.as_tensor(statics.dev, dtype=torch.int64,
                                    device=self.device)
-        self.onehot = device_onehot(self.dev, statics.num_devices)
+        if self.device.type == "cuda":      # what K4 takes
+            n_e, n_r = statics.dev.shape
+            sched.check_sizes(n_e, statics.num_devices, n_r)
+            for e, row in enumerate(statics.dev):
+                if len(set(row[row >= 0])) != int((row >= 0).sum()):
+                    raise ValueError(f"expert {e} has two replicas on one "
+                                     f"device: {row.tolist()}")
 
     def init_state(self) -> SolverState:
         e, r = self.statics.dev.shape
@@ -90,16 +96,8 @@ class Scheduler:
     def __call__(self, input_eg: torch.Tensor,
                  state: Optional[SolverState] = None) -> Schedule:
         """input_eg: int[E, G] per-(expert, source-device) token counts."""
-        valid = self.dev >= 0
-        loads = input_eg.sum(1)                                  # [E]
-        sol = solve_replica_loads(
-            loads.to(torch.float32), self.dev, self.statics.num_devices,
-            x_init=None if state is None else state.x, sweeps=SWEEPS,
-            onehot=self.onehot)
-        x_int = round_replica_loads(sol.x, loads, valid)
-        routed = route_tokens(input_eg, x_int, self.dev,
-                              sequencing=self.sequencing)
-        dl = device_loads(x_int.to(torch.float32), self.onehot)
-        mean = torch.clamp(dl.mean(), min=1e-9)
-        return Schedule(flow=routed.flow, x_int=x_int, solver_state=sol,
-                        max_load=dl.max(), balance=dl.max() / mean)
+        x, x_int, flow, max_load, balance = ops.schedule(
+            input_eg, self.dev, self.statics.num_devices,
+            None if state is None else state.x, self.sequencing, SWEEPS)
+        return Schedule(flow=flow, x_int=x_int, solver_state=SolverState(x),
+                        max_load=max_load, balance=balance)

@@ -10,8 +10,14 @@ its replicas' devices.  The iterate stays feasible at every step, so a
 fixed number of sweeps is safe; the warm start carries from one micro-batch
 to the next.
 
-Everything runs on the tensors' device with no host synchronisation.  The
-sweep is E x sweeps sequential water-fills of a few small launches each.
+Every f32 sum is added left to right in index order, as the reference's
+compiled program adds it on the CPU (``cumsum`` as a reduce window, the
+device loads as a scatter-add): ``torch.cumsum`` accumulates f32 in double
+on the CPU and in a tree on CUDA, and the integer rounding downstream can
+turn one ulp into another token count.  This is the plain version of K4
+(``csrc/microep_sched.cu``), which adds in the same order.  It runs on the
+tensors' device with no host synchronisation, as E x sweeps sequential
+water-fills of a few small launches each.
 """
 from __future__ import annotations
 
@@ -19,14 +25,22 @@ from typing import NamedTuple, Optional
 
 import torch
 
-__all__ = ["SolverState", "water_fill", "device_loads", "device_onehot",
-           "solve_replica_loads"]
+__all__ = ["SolverState", "water_fill", "device_loads", "solve_replica_loads"]
 
 _BIG = 1e30
 
 
 class SolverState(NamedTuple):
     x: torch.Tensor  # f32[E, R] replica loads (padding replicas forced to 0)
+
+
+def _running_sum(v: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums along the last axis, added left to right in
+    ``v``'s type: the same bits on every device."""
+    out = [v[..., 0]]
+    for i in range(1, v.shape[-1]):
+        out.append(out[-1] + v[..., i])
+    return torch.stack(out, -1)
 
 
 def water_fill(levels: torch.Tensor, budget: torch.Tensor,
@@ -41,7 +55,7 @@ def water_fill(levels: torch.Tensor, budget: torch.Tensor,
     srt = lv[order]
     r = lv.shape[0]
     # with j+1 active replicas the level is (budget + Σ_{i<=j} srt_i)/(j+1)
-    csum = torch.cumsum(srt, 0)
+    csum = _running_sum(srt)
     j1 = torch.arange(1, r + 1, dtype=levels.dtype, device=levels.device)
     tau = (budget + csum) / j1
     # the level covers the j-th entry and stays at or under the next one
@@ -50,7 +64,7 @@ def water_fill(levels: torch.Tensor, budget: torch.Tensor,
     idx = torch.argmax(ok.to(torch.uint8))      # first valid j
     alloc_sorted = torch.clamp(tau[idx] - srt, min=0.0)
     # keep the exact budget: scale away tiny numeric drift
-    total = alloc_sorted.sum()
+    total = _running_sum(alloc_sorted)[-1]
     alloc_sorted = alloc_sorted * torch.where(
         total > 0, budget / total, torch.zeros_like(total))
     alloc = torch.empty_like(alloc_sorted)
@@ -58,16 +72,18 @@ def water_fill(levels: torch.Tensor, budget: torch.Tensor,
     return alloc * valid
 
 
-def device_onehot(dev: torch.Tensor, num_devices: int) -> torch.Tensor:
-    """f32[E*R, G] replica -> device membership (padding rows all zero)."""
-    g = torch.arange(num_devices, device=dev.device)
-    return (dev.reshape(-1, 1) == g).to(torch.float32)
-
-
-def device_loads(x: torch.Tensor, onehot: torch.Tensor) -> torch.Tensor:
-    """f32[G] total load per device, summed over replicas in (expert,
-    replica) order — a fixed order on every device, no atomics."""
-    return (x.reshape(-1, 1) * onehot).sum(0)
+def device_loads(x: torch.Tensor, dev: torch.Tensor,
+                 num_devices: int) -> torch.Tensor:
+    """f32[G] total load per device, added expert by expert in index order
+    from 0 (the reference's scatter-add order).  dev: int[E, R] (-1 pad)."""
+    valid = dev >= 0
+    safe_dev = torch.where(valid, dev, torch.zeros_like(dev))
+    xs = torch.where(valid, x, torch.zeros_like(x))
+    dl = torch.zeros(num_devices, dtype=x.dtype, device=x.device)
+    for e in range(x.shape[0]):
+        # a device hosts at most one replica of e; padding adds exact zeros
+        dl = dl.index_add(0, safe_dev[e], xs[e])
+    return dl
 
 
 def _init_iterate(loads: torch.Tensor, valid: torch.Tensor,
@@ -79,7 +95,7 @@ def _init_iterate(loads: torch.Tensor, valid: torch.Tensor,
     prop = torch.where(valid, loads[:, None] / denom, zero)
     if x_init is None:
         return prop
-    s = x_init.sum(-1, keepdim=True)
+    s = _running_sum(x_init)[:, -1:]
     x = torch.where(s > 0, x_init * loads[:, None] / torch.clamp(s, min=1e-9),
                     prop)
     return torch.where(valid, x, zero)
@@ -91,23 +107,20 @@ def solve_replica_loads(
     num_devices: int,
     x_init: Optional[torch.Tensor] = None,
     sweeps: int = 6,
-    onehot: Optional[torch.Tensor] = None,
 ) -> SolverState:
     """Solve LPP 1 on the tensors' device.
 
     loads: f32[E] total load per expert in the MicroEP group; dev: int[E, R]
     flat device per replica (-1 = padding); x_init: optional f32[E, R] warm
-    start, re-projected onto the current loads; ``onehot`` the cached
-    :func:`device_onehot` of ``dev``.  Returns x with Σ_r x[e] == loads[e].
+    start, re-projected onto the current loads.  Returns x with
+    Σ_r x[e] == loads[e].
     """
     n_e = dev.shape[0]
     valid = dev >= 0
     safe_dev = torch.where(valid, dev, torch.zeros_like(dev))
     loads = loads.to(torch.float32)
-    if onehot is None:
-        onehot = device_onehot(dev, num_devices)
     x = _init_iterate(loads, valid, x_init)      # a fresh tensor: updated
-    dl = device_loads(x, onehot)                 # in place below
+    dl = device_loads(x, dev, num_devices)       # in place below
     for _ in range(sweeps):
         for e in range(n_e):
             xe = x[e]

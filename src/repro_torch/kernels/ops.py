@@ -6,13 +6,17 @@ launch), a CPU tensor runs the plain PyTorch version in ``ref``.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import ref
 from .grouped_matmul import grouped_ffn_cuda, grouped_ffn_flat_cuda
+from .sched import schedule_cuda
 from .wkv6_chunk import wkv6_cuda
 
-__all__ = ["grouped_ffn", "grouped_ffn_flat", "tile_group_ids", "wkv6"]
+__all__ = ["grouped_ffn", "grouped_ffn_flat", "schedule", "tile_group_ids",
+           "wkv6"]
 
 
 def tile_group_ids(group_start: torch.Tensor, n: int, bm: int,
@@ -91,3 +95,21 @@ def wkv6(
     if q.device.type == "cpu":
         return ref.wkv6_chunk_ref(q, k, v, torch.exp(lw.float()), u)[0]
     return wkv6_cuda(q, k, v, lw, u)
+
+
+def schedule(
+    input_eg: torch.Tensor,           # int[E, G] tokens per (expert, source)
+    dev: torch.Tensor,                # int64[E, R] replica -> device, -1 pad
+    num_devices: int,
+    x_init: Optional[torch.Tensor] = None,   # f32[E, R] warm start
+    sequencing: str = "proportional",
+    sweeps: int = 6,
+):
+    """One micro-batch's MicroEP schedule (LPP-1 solve, rounding, Algorithm
+    1 routing, device loads).  -> (x, x_int, flow, max_load, balance); K4
+    on a CUDA tensor, its plain version on a CPU tensor."""
+    if input_eg.device.type == "cpu":
+        return ref.schedule_ref(input_eg, dev, num_devices, x_init,
+                                sequencing, sweeps)
+    return schedule_cuda(input_eg, dev, num_devices, x_init, sequencing,
+                         sweeps)

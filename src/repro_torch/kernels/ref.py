@@ -3,7 +3,9 @@
 Each hand-written kernel's semantics are defined here; the CPU tests hold
 these against the JAX oracles, and ``chip_smoke.py`` holds each kernel
 against its plain version on the card, on inputs drawn by ``wkv6_inputs``
-for K3.
+for K3.  K4's plain version, ``schedule_ref``, composes the scheduler core
+(``repro_torch.core``), whose reference twin is the in-graph solver,
+rounding and routing of ``repro.core``.
 """
 from __future__ import annotations
 
@@ -12,7 +14,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["grouped_ffn_ref", "grouped_ffn_flat_ref",
+from ..core.rounding import round_replica_loads
+from ..core.routing import route_tokens
+from ..core.solver import device_loads, solve_replica_loads
+
+__all__ = ["schedule_ref", "grouped_ffn_ref", "grouped_ffn_flat_ref",
            "grouped_ffn_flat_blocked_ref", "wkv6_chunk_ref",
            "wkv6_subchunk_ref", "wkv6_inputs"]
 
@@ -312,3 +318,27 @@ def wkv6_inputs(g: torch.Generator, bh: int, t: int, d: int, device,
     lw = -torch.exp(z * 0.5 - 5 if model_decay else z - 1)
     u = torch.randn((bh, d), generator=g, device=device) * 0.5
     return q, k, v, lw, u
+
+
+def schedule_ref(
+    input_eg: torch.Tensor,           # int[E, G] tokens per (expert, source)
+    dev: torch.Tensor,                # int[E, R] replica -> device, -1 pad
+    num_devices: int,
+    x_init: Optional[torch.Tensor] = None,   # f32[E, R] warm start
+    sequencing: str = "proportional",
+    sweeps: int = 6,
+):
+    """One micro-batch's MicroEP schedule: the LPP-1 solve by Gauss-Seidel
+    water-filling, largest-remainder rounding, Algorithm 1 routing and the
+    resulting device loads.  -> (x f32[E, R] solver iterate, x_int
+    int64[E, R], flow int64[E, G, R], max_load f32[], balance f32[])."""
+    valid = dev >= 0
+    loads = input_eg.sum(1)
+    x = solve_replica_loads(loads.to(torch.float32), dev, num_devices,
+                            x_init=x_init, sweeps=sweeps).x
+    x_int = round_replica_loads(x, loads, valid)
+    flow = route_tokens(input_eg, x_int, dev, sequencing=sequencing).flow
+    dl = device_loads(x_int.to(torch.float32), dev, num_devices)
+    max_load = dl.max()
+    return x, x_int, flow, max_load, max_load / torch.clamp(dl.mean(),
+                                                            min=1e-9)

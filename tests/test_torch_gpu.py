@@ -1,6 +1,6 @@
-"""Tests of the port that need the card: K1, K2 and K3 (CUDA kernels, with
-no CPU or interpret mode) against their plain versions on the same inputs,
-and K1 and K3 against their own arithmetic in plain PyTorch.
+"""Tests of the port that need the card: K1, K2, K3 and K4 (CUDA kernels,
+with no CPU or interpret mode) against their plain versions on the same
+inputs, and K1 and K3 against their own arithmetic in plain PyTorch.
 They skip without a CUDA device.  This file imports no JAX, so it also runs where JAX
 is not installed:
 
@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.launch import time_k4
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -270,3 +271,71 @@ def test_cuda_k3_as_accurate_as_plain_f32():
     err, err_plain = ((a.double() - exact).abs().max().item()
                       for a in (got, plain))
     assert err <= 1.5 * err_plain, (err, err_plain)
+
+
+# K4 cases beside time_k4.CASES, in the same form: E 8/16 on G 1 and G 8
+K4_EXTRA = {
+    "e8-g1": (8, (1, 1), 8, "proportional", (16, 2, 0.5)),
+    "e16-g1": (16, (1, 1), 16, "proportional", (64, 4, 1.0)),
+    "e8-g8": (8, (2, 4), 3, "proportional", (32, 2, 1.0)),
+    "e16-g8": (16, (2, 4), 5, "proportional", (64, 2, 0.5)),
+    "e16-g8-greedy": (16, (2, 4), 4, "greedy", (64, 2, 1.0)),
+    "e8-g8-r8": (8, (2, 4), 8, "proportional", (32, 2, 1.0)),
+    # wider groups: 16 replicas an expert, and K4's limits (E 256, G 64,
+    # R 32: shared memory past 48 KB)
+    "e64-g16-r16": (64, (4, 4), 64, "proportional", (256, 2, 1.0)),
+    "e256-g64-r32": (256, (8, 8), 128, "proportional", (64, 4, 1.0)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("warm", [True, False], ids=["warm", "cold"])
+@pytest.mark.parametrize("name", [*time_k4.CASES, *K4_EXTRA])
+def test_cuda_k4_matches_plain_version(name, warm):
+    """K4 against ``ref.schedule_ref`` on the card over three micro-batches,
+    each carrying its warm start or each from a cold start: x_int, flow
+    and max_load equal, x within 1e-5 and balance within 1e-6
+    (``time_k4.check_outputs``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K4 is a CUDA kernel)")
+    spec = name if name in time_k4.CASES else K4_EXTRA[name]
+    dev, n_g, seq, batches = time_k4.case(spec, "cuda")
+    for got, expect in time_k4.run_both(dev, n_g, seq, batches, warm):
+        time_k4.check_outputs(got, expect)
+
+
+@pytest.mark.gpu
+def test_cuda_k4_repeats_bit_for_bit():
+    """Two launches on the same inputs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K4 is a CUDA kernel)")
+    dev, n_g, seq, batches = time_k4.case("paper-g16", "cuda")
+    x0 = ops.schedule(batches[0], dev, n_g, None, seq)[0]
+    one = ops.schedule(batches[1], dev, n_g, x0, seq)
+    two = ops.schedule(batches[1], dev, n_g, x0, seq)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.gpu
+def test_cuda_scheduler_is_one_k4_launch(monkeypatch):
+    """On the card ``Scheduler.__call__`` is one K4 launch and never runs
+    the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K4 is a CUDA kernel)")
+    from repro_torch.engine import MicroEPEngine
+    from repro_torch.kernels.sched import schedule_cuda
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain scheduler ran on the card path")
+    monkeypatch.setattr(ref, "schedule_ref", refuse)
+    n_e, grid, slots, seq, _ = time_k4.CASES["paper-g16"]
+    scheduler = MicroEPEngine.build(
+        n_e, grid, placement=time_k4.replicated_placement(*grid, n_e, slots,
+                                                          seed=0),
+        sequencing=seq, device="cuda").scheduler
+    _, _, _, batches = time_k4.case("paper-g16", "cuda")
+    before = schedule_cuda.launches
+    state = scheduler.init_state()
+    for input_eg in batches:
+        state = scheduler(input_eg, state).solver_state
+    assert schedule_cuda.launches - before == len(batches)
