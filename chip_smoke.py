@@ -6,9 +6,10 @@
 Phases, in order; any failure raises and exits nonzero:
   1. environment: torch / CUDA versions and the card's name and power limit;
      TF32 off for matrix products and convolutions (full f32 products);
-  2. build K1/K2 (``src/repro_torch/csrc/grouped_ffn_flat.cu``), K3
+  2. build K1/K2 (``src/repro_torch/csrc/grouped_ffn_flat.cu``), K1b
+     (``src/repro_torch/csrc/grouped_ffn_flat_bwd.cu``), K3
      (``src/repro_torch/csrc/wkv6.cu``) and K4
-     (``src/repro_torch/csrc/microep_sched.cu``) with nvcc, all three
+     (``src/repro_torch/csrc/microep_sched.cu``) with nvcc, all four
      started together;
   3. K1 against its plain PyTorch version on the card, f32 and bf16, all
      three activations: (a) bm 128, S 3, H 128, F 512, counts [100, 0, 250];
@@ -61,12 +62,37 @@ Phases, in order; any failure raises and exits nonzero:
      x_int, flow and max_load equal, x within 1e-5, balance within 1e-6.
      Times K4 (mean of 20 launches queued behind a spin kernel, and paced
      by its host work) and the plain version at the olmoe and paper
-     geometries.
+     geometries;
+ 11. K1b (K1's backward, ``csrc/grouped_ffn_flat_bwd.cu``) against its
+     plain version, f32 (2e-5), all three activations, on ragged groups
+     (bm 8 with empty and one-row groups, bm 128, H 199 / F 301); dx exactly
+     zero outside every group; then ``launch/time_k1b.py`` at olmoe-1b-7b's
+     training geometry (one MoE layer of one micro-batch of phase 12: N
+     49 664, 16 384 rows in groups, H 2048, F 1024, swiglu): K1 and K1b
+     within rtol 1e-4 and an atol of 1e-5 of each output's largest
+     magnitude of their plain versions, K1b twice equal bit for bit, and
+     both timed beside their bounds;
+ 12. train olmoe-1b-7b at full width, depth cut to 4 layers
+     (``dataclasses.replace(cfg, num_layers=4)``: f32 master, gradient and
+     two Adam moments take 16 B a parameter, and the 16-layer model's 6.82
+     B parameters would need ~109 GB), f32 weights drawn on the card from a
+     seeded generator: six steps of 8 × 512 tokens of the synthetic stream
+     in 2 micro-batches through ``init_train_state`` / ``make_train_step``;
+     each step's loss, gradient norm, balance and overflow; finite losses
+     and gradient norms, no overflow, K1, K1b and K4 each launched 8 times a
+     step (4 layers × 2 micro-batches) and no plain K1, K1b or K4; the step
+     time, tokens/s and peak memory, then one more step split into K1, K1b,
+     the scheduler, AdamW and the rest;
+ 13. one train step on the card against the CPU's plain path on the smoke
+     configs of olmoe-1b-7b and paper-gpt-32x1.3b (``launch/
+     check_train.py``): loss within 2e-4, gradients within rtol 1e-4 / atol
+     1e-5, Adam moments within rtol 2e-2 / atol 2e-4.
 The last two lines are the kernels' JSON record and the result object.
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -227,6 +253,19 @@ def phase_k1(cfg, batch: int, device) -> dict:
 # ------------------------------------------------------- phase 4: serving
 
 
+def sync_timed(fn, spent: dict, key: str):
+    """``fn`` with the wall time of each call, bracketed by device
+    synchronisations, added to ``spent[key]``."""
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent[key] += time.perf_counter() - t0
+        return out
+    return wrapper
+
+
 def step_split(model, cfg, serve_cfg, device) -> dict:
     """Wall time of a full decode step, and within the same steps the time
     of the MoE layers' scheduler calls and K1 calls (each bracketed by
@@ -255,20 +294,9 @@ def step_split(model, cfg, serve_cfg, device) -> dict:
 
     plain_step_ms = steps()
     spent = {"scheduler": 0.0, "k1": 0.0}
-
-    def timed(fn, key):
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            spent[key] += time.perf_counter() - t0
-            return out
-        return wrapper
-
     sched_call, k1_call = Scheduler.__call__, ops.grouped_ffn_flat
-    Scheduler.__call__ = timed(sched_call, "scheduler")
-    ops.grouped_ffn_flat = timed(k1_call, "k1")
+    Scheduler.__call__ = sync_timed(sched_call, spent, "scheduler")
+    ops.grouped_ffn_flat = sync_timed(k1_call, spent, "k1")
     try:
         step_ms = steps()
     finally:
@@ -695,6 +723,185 @@ def phase_k4(device) -> dict:
             "bound_by": bound_by, "library_ms": None}
 
 
+# ----------------------------------------------------------- phase 11: K1b
+
+
+K1B_CASES = ((8, [3, 0, 9, 1, 0, 4], 200, 300), (8, [1, 1, 0, 1], 64, 30),
+             (128, [100, 0, 250], 128, 512), (8, [5, 2, 0, 7, 1], 199, 301))
+
+
+def phase_k1b(device):
+    """-> (K1b's record, ``time_k1b.measure``'s result)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.grouped_matmul import (grouped_ffn_flat_bwd_cuda,
+                                                    grouped_ffn_flat_cuda)
+    from repro_torch.launch import time_k1b
+    from repro_torch.launch.time_k1 import random_weights
+    g = torch.Generator(device=device)
+    g.manual_seed(2468)
+    for bm, counts, h, f in K1B_CASES:
+        n = sum(-(-c // bm) * bm for c in counts) + bm
+        start, end = flat_layout(counts, bm, n, device)
+        x = torch.randn((n, h), generator=g, device=device) * 0.5
+        w = random_weights(g, len(counts), h, f, device)
+        dout = torch.randn((n, h), generator=g, device=device)
+        rows = torch.arange(n, device=device)[None, :]
+        member = ((rows >= start[:, None]) & (rows < end[:, None])).any(0)
+        errs = []
+        for act in ("swiglu", "geglu", "relu_sq"):
+            got = grouped_ffn_flat_bwd_cuda(x, start.int(), end.int(), *w,
+                                            dout, act)
+            torch.cuda.synchronize()
+            expect = ref.grouped_ffn_flat_bwd_ref(x, start, end, *w, dout,
+                                                  act)
+            errs += [check_close(f"K1b bm {bm} {counts} H {h} F {f} {act} "
+                                 f"{name}", a, b, 2e-5)
+                     for name, a, b in zip(("dx", "dWg", "dWu", "dWd"),
+                                           got, expect)]
+            require(bool((got[0][~member] == 0).all()),
+                    f"K1b {counts} {act}: dx outside every group is not zero")
+        print(f"  K1b bm {bm}, counts {counts}, H {h}, F {f}: dx, dWg, dWu, "
+              f"dWd x 3 activations, max abs err {max(errs):.3e} (tol "
+              f"2e-5), dx zero outside the groups")
+    try:
+        r = time_k1b.measure(device)
+    except AssertionError as exc:
+        raise SmokeFailure(str(exc)) from exc
+    for line in time_k1b.describe(r).splitlines():
+        print("  " + line)
+    grouped_ffn_flat_cuda.launches = 0      # comparison launches do not count
+    grouped_ffn_flat_bwd_cuda.launches = 0
+    bound_ms, bound_by = r["k1b_bound"][:2]
+    return {"name": "grouped_ffn_flat_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/grouped_ffn_flat_bwd.cu",
+            "replaces": "src/repro/kernels/ref.py:45",
+            "launches": 0, "max_abs_err": r["k1b_err"], "ms": r["k1b_ms"],
+            "plain_ms": r["k1b_plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}, r
+
+
+# ---------------------------------------------- phase 12: olmoe training
+
+
+def train_split(ts, step, batch) -> dict:
+    """Wall time of one train step, and within it the time of the K1
+    calls, the K1b calls, the scheduler calls and AdamW, each bracketed by
+    device synchronisations."""
+    from repro_torch.core.scheduler import Scheduler
+    from repro_torch.kernels import grouped_matmul, ops
+    from repro_torch.train import loop
+    spent = dict.fromkeys(("k1", "k1b", "scheduler", "adamw"), 0.0)
+    patches = [(ops, "grouped_ffn_flat", "k1"),
+               (grouped_matmul.GroupedFFNFlat, "backward", "k1b"),
+               (Scheduler, "__call__", "scheduler"),
+               (loop, "adamw_update", "adamw")]
+    originals = [obj.__dict__[name] for obj, name, _ in patches]
+    for (obj, name, key), fn in zip(patches, originals):
+        timed = (staticmethod(sync_timed(fn.__func__, spent, key))
+                 if isinstance(fn, staticmethod)
+                 else sync_timed(fn, spent, key))
+        setattr(obj, name, timed)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, m = step(ts, batch)
+        float(m["loss"])
+        total = time.perf_counter() - t0
+    finally:
+        for (obj, name, _), fn in zip(patches, originals):
+            setattr(obj, name, fn)
+    out = {k: v * 1e3 for k, v in spent.items()}
+    out["step"] = total * 1e3
+    out["rest"] = out["step"] - sum(spent.values()) * 1e3
+    return out
+
+
+def phase_train(cfg, device, k1_train: dict) -> int:
+    """-> K1b launches of the training run."""
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels.grouped_matmul import (grouped_ffn_flat_bwd_cuda,
+                                                    grouped_ffn_flat_cuda)
+    from repro_torch.kernels.sched import schedule_cuda
+    from repro_torch.launch.check_train import (count_plain_calls,
+                                                kernel_launches)
+    from repro_torch.train.loop import init_train_state, make_train_step
+    layers, batch, seq, n_micro, steps = 4, 8, 512, 2, 6
+    cfg = dataclasses.replace(cfg, num_layers=layers)   # reduced: depth
+    t0 = time.perf_counter()
+    ts = init_train_state(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in ts.model.parameters())
+    print(f"  {cfg.name}, depth cut to {layers} layers: d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim}, "
+          f"{cfg.num_experts} experts top-{cfg.top_k}, moe_d_ff "
+          f"{cfg.moe_d_ff}, vocab {cfg.vocab}, tied embeddings; "
+          f"{n_params / 1e9:.3f} B f32 params, master + 2 Adam moments "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, initialised on "
+          f"the card in {time.perf_counter() - t0:.1f} s")
+    step = make_train_step(cfg, n_micro=n_micro, device=device)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch, seed=1)
+    torch.cuda.reset_peak_memory_stats()
+    times, rows = [], []
+    grouped_ffn_flat_cuda.launches = 0          # just before the main path
+    grouped_ffn_flat_bwd_cuda.launches = 0
+    schedule_cuda.launches = 0
+    with count_plain_calls() as plain:
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts, m = step(ts, data.batch_at(i))
+            vals = {k: float(v) for k, v in m.items()}
+            times.append((time.perf_counter() - t0) * 1e3)
+            rows.append(vals)
+            print(f"  step {i}: loss {vals['loss']:.4f} (ce "
+                  f"{vals['ce_loss']:.4f}), grad norm "
+                  f"{vals['grad_norm']:.4f}, balance {vals['balance']:.4f}, "
+                  f"overflow {vals['overflow']:.0f}, {times[-1]:.1f} ms")
+    launches = kernel_launches()                # just after it
+    peak = torch.cuda.max_memory_allocated()
+    expect = steps * layers * n_micro
+    require(all(torch.isfinite(torch.tensor([r["loss"], r["grad_norm"]]))
+                .all() for r in rows), "a loss or gradient norm is not finite")
+    require(all(r["overflow"] == 0 for r in rows), "capacity overflow")
+    require(launches == dict.fromkeys(launches, expect),
+            f"launches {launches}, expected {expect} each")
+    require(not any(plain.values()),
+            f"a plain version ran on the card path: {plain}")
+    steady = times[1:]
+    step_ms = sum(steady) / len(steady)
+    tokens = batch * seq
+    print(f"  launches over {steps} steps: {launches} ({expect // steps} "
+          f"each a step = {layers} layers x {n_micro} micro-batches); plain "
+          f"calls {plain}")
+    print(f"  step time {step_ms:.1f} ms (mean of steps 1-{steps - 1}; step "
+          f"0 {times[0]:.1f} ms), {tokens / step_ms * 1e3:.0f} tokens/s, "
+          f"peak memory {peak / 2**30:.2f} GiB")
+    print(f"  K1 at the training geometry (phase 11): "
+          f"{k1_train['k1_ms']:.4f} ms a call against "
+          f"{k1_train['k1_bound'][0]:.4f} ms; K1b {k1_train['k1b_ms']:.4f} "
+          f"ms against {k1_train['k1b_bound'][0]:.4f} ms")
+    sp = train_split(ts, step, data.batch_at(steps))
+    print(f"  one more step with the split timers: {sp['step']:.1f} ms = "
+          f"K1 {sp['k1']:.1f} ms + K1b {sp['k1b']:.1f} ms + scheduler "
+          f"{sp['scheduler']:.1f} ms ({layers * n_micro} calls each) + AdamW "
+          f"{sp['adamw']:.1f} ms + rest {sp['rest']:.1f} ms")
+    del ts, step
+    return launches["K1b"]
+
+
+# ---------------------------------------- phase 13: training, card vs CPU
+
+
+def phase_train_parity(device) -> None:
+    from repro_torch.launch import check_train
+    for name in check_train.CONFIGS:
+        try:
+            r = check_train.card_vs_cpu(name, device)
+        except AssertionError as exc:
+            raise SmokeFailure(str(exc)) from exc
+        print("  " + check_train.describe(name, r))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card",
@@ -717,9 +924,10 @@ def main() -> int:
 
     # 2. build: one nvcc for each source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        libs = list(pool.map(lambda m: m.build(),
-                             (grouped_matmul, wkv6_chunk, sched)))
+    with ThreadPoolExecutor(4) as pool:
+        libs = list(pool.map(lambda build: build(),
+                             (grouped_matmul.build, grouped_matmul.build_bwd,
+                              wkv6_chunk.build, sched.build)))
     print(f"[2] built {', '.join(str(p.relative_to(ROOT)) for p in libs)} "
           f"in {time.perf_counter() - t0:.1f} s")
 
@@ -758,10 +966,22 @@ def main() -> int:
     print("[10] K4 against its plain version")
     k4 = phase_k4(device)
     k4["launches"] = k4_launches
+    torch.cuda.empty_cache()
+
+    print("[11] K1b against its plain version")
+    k1b, k1_train = phase_k1b(device)
+    torch.cuda.empty_cache()
+
+    print("[12] train olmoe-1b-7b, full width, 4 layers")
+    k1b["launches"] = phase_train(olmoe, device, k1_train)
+    torch.cuda.empty_cache()
+
+    print("[13] one train step, card vs CPU")
+    phase_train_parity(device)
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     print(card)
-    print(json.dumps({"kernels": [record, k2, k3, k4]}))
+    print(json.dumps({"kernels": [record, k2, k3, k4, k1b]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,7 +2,9 @@
 
 The tensor's device picks the implementation, never a fallback: a CUDA
 tensor launches the hand-written kernel (which raises if it cannot build or
-launch), a CPU tensor runs the plain PyTorch version in ``ref``.
+launch), a CPU tensor runs the plain PyTorch version in ``ref``.  The
+gradient of ``grouped_ffn_flat`` is K1b on a CUDA tensor and autograd of
+the plain version on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ from typing import Optional
 import torch
 
 from . import ref
-from .grouped_matmul import grouped_ffn_cuda, grouped_ffn_flat_cuda
+from .grouped_matmul import GroupedFFNFlat, grouped_ffn_cuda
 from .sched import schedule_cuda
 from .wkv6_chunk import wkv6_cuda
 
@@ -44,7 +46,8 @@ def grouped_ffn_flat(
 
     ``bm`` must be the row-tile alignment the buffer was laid out with
     (``DispatchStatics.bm``): the kernel assigns each bm-row tile to one
-    group, so a larger bm would zero later groups sharing a tile."""
+    group, so a larger bm would zero later groups sharing a tile.  Its
+    gradient is K1b (``GroupedFFNFlat``) on a CUDA tensor."""
     n = x.shape[0]
     if n % bm:
         raise ValueError(f"flat buffer of {n} rows is not a multiple of "
@@ -53,8 +56,9 @@ def grouped_ffn_flat(
         return ref.grouped_ffn_flat_ref(x, group_start, group_end, w_gate,
                                         w_up, w_down, activation)
     tile_gid = tile_group_ids(group_start, n, bm, w_gate.shape[0])
-    return grouped_ffn_flat_cuda(x, tile_gid, group_end.to(torch.int32),
-                                 w_gate, w_up, w_down, activation, bm)
+    return GroupedFFNFlat.apply(x, tile_gid, group_start.to(torch.int32),
+                                group_end.to(torch.int32), w_gate, w_up,
+                                w_down, activation, bm)
 
 
 def grouped_ffn(

@@ -3,7 +3,9 @@
 Each hand-written kernel's semantics are defined here; the CPU tests hold
 these against the JAX oracles, and ``chip_smoke.py`` holds each kernel
 against its plain version on the card, on inputs drawn by ``wkv6_inputs``
-for K3.  K4's plain version, ``schedule_ref``, composes the scheduler core
+for K3.  ``grouped_ffn_flat_bwd_ref`` is K1b's: the gradient of K1, which
+the reference takes with ``jax.grad`` of its plain K1.  K4's plain
+version, ``schedule_ref``, composes the scheduler core
 (``repro_torch.core``), whose reference twin is the in-graph solver,
 rounding and routing of ``repro.core``.
 """
@@ -19,8 +21,8 @@ from ..core.routing import route_tokens
 from ..core.solver import device_loads, solve_replica_loads
 
 __all__ = ["schedule_ref", "grouped_ffn_ref", "grouped_ffn_flat_ref",
-           "grouped_ffn_flat_blocked_ref", "wkv6_chunk_ref",
-           "wkv6_subchunk_ref", "wkv6_inputs"]
+           "grouped_ffn_flat_bwd_ref", "grouped_ffn_flat_blocked_ref",
+           "wkv6_chunk_ref", "wkv6_subchunk_ref", "wkv6_inputs"]
 
 
 def _act(h_gate: torch.Tensor, h_up: torch.Tensor, activation: str):
@@ -54,6 +56,13 @@ def grouped_ffn_ref(
     return torch.where(mask, out, 0.0).to(x.dtype)
 
 
+def _groups(group_start: torch.Tensor, group_end: torch.Tensor):
+    """(group, start, end) of every non-empty group, read to the host."""
+    return [(g, s, e) for g, (s, e) in enumerate(zip(group_start.tolist(),
+                                                     group_end.tolist()))
+            if e > s]
+
+
 def grouped_ffn_flat_ref(
     x: torch.Tensor,            # [N, H] rows sorted by group, bm-aligned starts
     group_start: torch.Tensor,  # int[S]
@@ -65,19 +74,73 @@ def grouped_ffn_flat_ref(
 ) -> torch.Tensor:
     """Flat-layout FFN: rows outside [start, end) of every group are zeros.
 
-    Dense over groups, as the reference oracle: every group's weights are
-    applied to every row and the result is selected by row->group
-    membership.  O(N·S·H·F), in float32."""
-    n = x.shape[0]
-    rows = torch.arange(n, device=x.device)[None, :]
-    member = (rows >= group_start[:, None]) & (rows < group_end[:, None])
-    xf = x.float()
-    hg = torch.einsum("nh,shf->snf", xf, w_gate.float())
-    hu = torch.einsum("nh,shf->snf", xf, w_up.float())
-    out_s = torch.einsum("snf,sfh->snh", _act(hg, hu, activation),
-                         w_down.float())
-    out = torch.einsum("sn,snh->nh", member.float(), out_s)
+    Group by group: the rows [start_g, end_g) go through group g's weights,
+    so the work is O(rows in groups · H · F), not O(N · S · H · F) as in the
+    dense reference oracle (the same function).  In float32, output in x's
+    type.  Autograd differentiates it on the CPU training path."""
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for g, s, e in _groups(group_start, group_end):
+        xg = x[s:e].float()
+        out[s:e] = _act(xg @ w_gate[g].float(), xg @ w_up[g].float(),
+                        activation) @ w_down[g].float()
     return out.to(x.dtype)
+
+
+def _act_and_grad(g: torch.Tensor, activation: str):
+    """act(g) and its derivative act'(g), by explicit formulas."""
+    if activation == "swiglu":
+        s = torch.sigmoid(g)
+        return g * s, s * (1.0 + g * (1.0 - s))
+    if activation == "geglu":       # tanh approximation, as jax.nn.gelu
+        c, a = 0.7978845608028654, 0.044715
+        t = torch.tanh(c * (g + a * g * g * g))
+        return (0.5 * g * (1.0 + t),
+                0.5 * (1.0 + t) + 0.5 * g * (1.0 - t * t) * c
+                * (1.0 + 3.0 * a * g * g))
+    if activation == "relu_sq":
+        r = torch.relu(g)
+        return r * r, 2.0 * r
+    raise ValueError(activation)
+
+
+def grouped_ffn_flat_bwd_ref(
+    x: torch.Tensor,            # [N, H]
+    group_start: torch.Tensor,  # int[S]
+    group_end: torch.Tensor,    # int[S]
+    w_gate: torch.Tensor,       # [S, H, F]
+    w_up: torch.Tensor,         # [S, H, F]
+    w_down: torch.Tensor,       # [S, F, H]
+    dout: torch.Tensor,         # [N, H] gradient of the FFN's output
+    activation: str = "swiglu",
+):
+    """The gradient of ``grouped_ffn_flat_ref`` (K1b's plain version) by
+    explicit formulas, not autograd.  For the rows R of group g, with
+    g = x·Wg, u = x·Wu:
+
+        dh = dout·Wdᵀ,  du = dh ⊙ act(g),  dg = dh ⊙ u ⊙ act'(g)
+        dx = dg·Wgᵀ + du·Wuᵀ
+        dWg = xᵀ·dg,  dWu = xᵀ·du,  dWd = (act(g) ⊙ u)ᵀ·dout
+
+    summed over R only.  Rows outside every group get dx = 0 and add
+    nothing; an empty group's weight gradients are zeros.  In float32;
+    -> (dx in x's type, dWg, dWu, dWd in the weights' type)."""
+    f32 = torch.float32
+    dx = torch.zeros(x.shape, dtype=f32, device=x.device)
+    dwg = torch.zeros(w_gate.shape, dtype=f32, device=x.device)
+    dwu = torch.zeros(w_up.shape, dtype=f32, device=x.device)
+    dwd = torch.zeros(w_down.shape, dtype=f32, device=x.device)
+    for g, s, e in _groups(group_start, group_end):
+        xg, dog = x[s:e].float(), dout[s:e].float()
+        wg, wu, wd = w_gate[g].float(), w_up[g].float(), w_down[g].float()
+        hg, hu = xg @ wg, xg @ wu
+        a, da = _act_and_grad(hg, activation)
+        dh = dog @ wd.T
+        du = dh * a
+        dg = dh * hu * da
+        dx[s:e] = dg @ wg.T + du @ wu.T
+        dwg[g], dwu[g], dwd[g] = xg.T @ dg, xg.T @ du, (a * hu).T @ dog
+    return (dx.to(x.dtype), dwg.to(w_gate.dtype), dwu.to(w_up.dtype),
+            dwd.to(w_down.dtype))
 
 
 K1_ROWS = 8                 # K1's rows per work item

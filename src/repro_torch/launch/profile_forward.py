@@ -55,6 +55,74 @@ def _busy_us(intervals, lo: float, hi: float) -> float:
     return busy
 
 
+def profile_device(run, part_of):
+    """Profile one call of ``run``, which ends in a device synchronisation.
+    -> (summary: the call's wall window, device and busy time in ms, the
+    idle share, device ms by ``part_of`` each kernel's name and the number
+    of device events; {kernel name: (calls, device us)}; the device
+    events)."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(WINDOW):
+            run()
+    events = prof.events()
+    window = [e for e in events
+              if e.name == WINDOW and e.device_type == DeviceType.CPU]
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and e.name != WINDOW
+               and not getattr(e, "is_user_annotation", False)]
+    if len(window) != 1 or not kernels:
+        raise RuntimeError(f"the profiler recorded {len(kernels)} device "
+                           f"events and {len(window)} windows")
+    lo, hi = window[0].time_range.start, window[0].time_range.end
+    by_part: dict = {}
+    by_kernel: dict = {}
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        by_part[part_of(e.name)] = by_part.get(part_of(e.name), 0.0) + us
+        n, t = by_kernel.get(e.name, (0, 0.0))
+        by_kernel[e.name] = (n + 1, t + us)
+    busy = _busy_us([(e.time_range.start, e.time_range.end)
+                     for e in kernels], lo, hi)
+    summary = {
+        "window_ms": (hi - lo) / 1e3,
+        "device_ms": sum(by_part.values()) / 1e3,
+        "busy_ms": busy / 1e3, "idle_share": 1.0 - busy / (hi - lo),
+        "parts_ms": {k: v / 1e3 for k, v in sorted(by_part.items())},
+        "kernel_launches": len(kernels),
+    }
+    return summary, by_kernel, kernels
+
+
+def report(summary: dict, by_kernel: dict, part_of, out: str,
+           stem: str) -> list:
+    """Print the device time by part; write the per-kernel table and the
+    summary under ``out`` as ``stem``.txt and ``stem``.json.  -> the
+    kernels by total device time."""
+    for part, ms in summary["parts_ms"].items():
+        print(f"  {part:20s} {ms:10.3f} ms  "
+              f"{ms / summary['device_ms']:7.2%} of device time")
+    path = pathlib.Path(out)
+    path.mkdir(parents=True, exist_ok=True)
+    rows = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
+    with open(path / f"{stem}.txt", "w") as fh:
+        fh.write(f"{summary['card']}\n{json.dumps(summary)}\n")
+        fh.write("device ms  calls  part                  kernel\n")
+        for name, (n, us) in rows:
+            fh.write(f"{us / 1e3:9.3f}  {n:5d}  {part_of(name):20s}  "
+                     f"{name[:160]}\n")
+    (path / f"{stem}.json").write_text(json.dumps(summary, indent=1))
+    print(f"per-kernel table: {path / f'{stem}.txt'}")
+    return rows
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True
+    ).stdout.strip().splitlines()[0]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
@@ -63,10 +131,7 @@ def main(argv=None) -> int:
     device = dec.require_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     cfg = get_config(ARCH)
     model = dec.init_params(cfg, seed=SEED, device=device)
     g = torch.Generator(device=model.device)
@@ -77,59 +142,19 @@ def main(argv=None) -> int:
     fwd(batch)                                   # warm-up
     torch.cuda.synchronize()
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        with record_function(WINDOW):
-            fwd(batch)
-            torch.cuda.synchronize()
-    events = prof.events()
-    window = [e for e in events
-              if e.name == WINDOW and e.device_type == DeviceType.CPU]
-    kernels = [e for e in events
-               if e.device_type == DeviceType.CUDA and e.name != WINDOW
-               and not getattr(e, "is_user_annotation", False)]
-    if len(window) != 1 or not kernels:
-        raise RuntimeError(f"the profiler recorded {len(kernels)} device "
-                           f"events and {len(window)} forward windows")
-    lo, hi = window[0].time_range.start, window[0].time_range.end
-    by_part: dict = {}
-    by_kernel: dict = {}
-    for e in kernels:
-        us = e.time_range.end - e.time_range.start
-        by_part[part_of(e.name)] = by_part.get(part_of(e.name), 0.0) + us
-        n, t = by_kernel.get(e.name, (0, 0.0))
-        by_kernel[e.name] = (n + 1, t + us)
-    device_us = sum(by_part.values())
-    busy = _busy_us([(e.time_range.start, e.time_range.end)
-                     for e in kernels], lo, hi)
-    summary = {
-        "card": card, "arch": cfg.name, "batch": BATCH, "seq": SEQ,
-        "last_only": True,
-        "window_ms": (hi - lo) / 1e3, "device_ms": device_us / 1e3,
-        "busy_ms": busy / 1e3, "idle_share": 1.0 - busy / (hi - lo),
-        "parts_ms": {k: v / 1e3 for k, v in sorted(by_part.items())},
-        "kernel_launches": len(kernels),
-    }
+    def run():
+        fwd(batch)
+        torch.cuda.synchronize()
+
+    split, by_kernel, _ = profile_device(run, part_of)
+    summary = {"card": card, "arch": cfg.name, "batch": BATCH, "seq": SEQ,
+               "last_only": True, **split}
     print(card)
     print(f"{cfg.name}, {BATCH} x {SEQ} tokens, last_only: "
           f"window {summary['window_ms']:.3f} ms, device time "
-          f"{summary['device_ms']:.3f} ms in {len(kernels)} device events, "
-          f"idle share {summary['idle_share']:.4f}")
-    for part, ms in summary["parts_ms"].items():
-        print(f"  {part:16s} {ms:10.3f} ms  {ms * 1e3 / device_us:7.2%} of "
-              f"device time")
-
-    out = pathlib.Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
-    rows = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
-    with open(out / "profile_forward.txt", "w") as fh:
-        fh.write(f"{card}\n{json.dumps(summary)}\n")
-        fh.write("device ms  calls  part              kernel\n")
-        for name, (n, us) in rows:
-            fh.write(f"{us / 1e3:9.3f}  {n:5d}  {part_of(name):16s}  "
-                     f"{name[:160]}\n")
-    (out / "profile_forward.json").write_text(json.dumps(summary, indent=1))
-    print(f"per-kernel table: {out / 'profile_forward.txt'}")
+          f"{summary['device_ms']:.3f} ms in {summary['kernel_launches']} "
+          f"device events, idle share {summary['idle_share']:.4f}")
+    report(summary, by_kernel, part_of, args.out, "profile_forward")
     return 0
 
 

@@ -1,5 +1,6 @@
 """Step functions of the runtime (twin of ``repro.launch.runtime``): for
-now the full-sequence forward on one device; the distributed runtime comes
+now the full-sequence forward on one device (the training step is
+``repro_torch.train.loop.make_train_step``); the distributed runtime comes
 with the multi-GPU slice."""
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ __all__ = ["make_forward_fn"]
 
 def make_forward_fn(model: dec.Decoder, last_only: bool = True,
                     device="cuda") -> Callable[[dict], torch.Tensor]:
-    """prefill_step(batch) -> logits, for ``batch`` {"tokens": int[B, T]}.
+    """prefill_step(batch) -> logits, for ``batch`` {"tokens": int[B, T]},
+    without gradients.  MoE layers solve their LP cold each call.
 
     Serving prefill needs only the final position's next-token distribution
     (``last_only``, logits [B, 1, V]); the full-logit variant
@@ -31,6 +33,7 @@ def make_forward_fn(model: dec.Decoder, last_only: bool = True,
     @torch.no_grad()
     def prefill_step(batch: dict) -> torch.Tensor:
         tokens = torch.as_tensor(batch["tokens"], device=device)
-        return dec.forward(model, {"tokens": tokens}, last_only=last_only)
+        return dec.forward(model, {"tokens": tokens},
+                           last_only=last_only)[0]
 
     return prefill_step

@@ -1,31 +1,36 @@
 """The decoder (twin of ``repro.models.decoder``): the decode step of
-attention + MicroEP MoE decoders, and the full-sequence forward of RWKV-6
-decoders.
+attention + MicroEP MoE decoders, their full-sequence forward and training
+loss, and the full-sequence forward of RWKV-6 decoders.
 
 The MoE dispatch runs the full MicroEP machinery on the degenerate
 single-device group (G=1, ``local_moe_apply``): top-k gating, counts, the
 warm-started LP water-fill, rounding, Algorithm 1 routing, packed dispatch,
 the grouped FFN (K1 on a CUDA device) and combine, in every MoE layer of
-every decode step.  The full-sequence forward (serving prefill and
-evaluation) runs every RWKV-6 block's recurrence through K3 on a CUDA
-device.  The reference's stacked ``layers_scan`` parameters are one module
-per layer here, and its ``lax.scan`` over layers a Python loop.
+every decode step and of every micro-batch of the full-sequence forward;
+its gradient goes through K1b on a CUDA device.  The full-sequence forward
+(serving prefill, evaluation, training) runs every RWKV-6 block's
+recurrence through K3 on a CUDA device.  The reference's stacked
+``layers_scan`` parameters are one module per layer here, and its
+``lax.scan`` over layers a Python loop.
 
-Supported: ``decode_step`` on decoders whose every layer is a
-global-attention + MoE block (``pattern == ("attn",)``, no sliding window,
-no M-RoPE, no expert tensor parallelism) — olmoe-1b-7b and
+Supported: ``decode_step``, ``forward`` and ``loss_fn`` on decoders whose
+every layer is a global-attention + MoE block (``pattern == ("attn",)``, no
+sliding window, no M-RoPE, no expert tensor parallelism) — olmoe-1b-7b and
 paper-gpt-32x1.3b; ``forward`` on decoders whose every layer is an RWKV-6
-block (``pattern == ("rwkv",)``) — rwkv6-7b.  The attention prefill and the
-stateful RWKV-6 decode are later slices.
+block (``pattern == ("rwkv",)``) — rwkv6-7b.  Parameters are created with
+``requires_grad=False``: serving builds no graph, and training turns them on
+with ``model.requires_grad_(True)``.  The stateful RWKV-6 decode and RWKV-6
+training are later slices.
 """
 from __future__ import annotations
 
 import functools
-from typing import List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.solver import SolverState
@@ -33,17 +38,19 @@ from ..engine import MicroEPEngine
 from ..moe.experts import ExpertParams
 from ..moe.layer import MoEMetrics, moe_ffn
 from ..moe.router import top_k_gating
-from .layers.attention import (AttnConfig, Attention, KVCache,
+from .layers.attention import (AttnConfig, Attention, KVCache, attention,
                                decode_attention, init_attention,
                                init_kv_cache)
 from .layers.norms import Norm
 from .layers.rwkv6 import (ChannelMix, TimeMix, init_rwkv6,
                            init_rwkv6_channel)
 
-__all__ = ["require_device", "check_servable", "check_forward", "Decoder",
-           "init_params", "load_reference_params", "forward", "lm_loss",
-           "init_solver_states", "init_decode_state", "decode_step",
-           "reset_decode_slots", "local_moe_apply", "n_moe_layers"]
+__all__ = ["require_device", "check_servable", "check_forward",
+           "check_trainable", "Decoder", "Metrics", "init_params",
+           "load_reference_params", "reference_tree", "forward", "lm_loss",
+           "lm_loss_chunked", "loss_fn", "init_solver_states",
+           "init_decode_state", "decode_step", "reset_decode_slots",
+           "local_moe_apply", "n_moe_layers"]
 
 
 def require_device(device) -> torch.device:
@@ -61,11 +68,15 @@ def _is_rwkv(cfg: ArchConfig) -> bool:
     return tuple(cfg.pattern) == ("rwkv",)
 
 
+def _is_moe_attention(cfg: ArchConfig) -> bool:
+    return bool(cfg.moe and tuple(cfg.pattern) == ("attn",)
+                and not cfg.window and not cfg.mrope_sections
+                and max(cfg.etp, 1) == 1 and not cfg.frontend_stub)
+
+
 def check_servable(cfg: ArchConfig) -> None:
     """Raise unless the decode step (serving) runs ``cfg``."""
-    if not cfg.moe or tuple(cfg.pattern) != ("attn",) or cfg.window \
-            or cfg.mrope_sections or max(cfg.etp, 1) != 1 \
-            or cfg.frontend_stub:
+    if not _is_moe_attention(cfg):
         raise ValueError(
             f"{cfg.name}: the port serves global-attention MoE decoders "
             f"(pattern ('attn',), no window, no M-RoPE, etp 1); the "
@@ -74,11 +85,23 @@ def check_servable(cfg: ArchConfig) -> None:
 
 def check_forward(cfg: ArchConfig) -> None:
     """Raise unless the full-sequence forward runs ``cfg``."""
-    if not _is_rwkv(cfg) or cfg.moe or cfg.frontend_stub:
+    rwkv = _is_rwkv(cfg) and not cfg.moe and not cfg.frontend_stub
+    if not rwkv and not _is_moe_attention(cfg):
         raise ValueError(
             f"{cfg.name}: the port's full-sequence forward runs RWKV-6 "
-            f"decoders (pattern ('rwkv',), no MoE); the attention prefill "
-            f"is not ported yet")
+            f"decoders (pattern ('rwkv',), no MoE) and global-attention MoE "
+            f"decoders (pattern ('attn',), no window, no M-RoPE, etp 1); "
+            f"the attention prefill of other blocks is not ported yet")
+
+
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise unless the training step runs ``cfg``."""
+    if not _is_moe_attention(cfg):
+        raise ValueError(
+            f"{cfg.name}: the port trains global-attention MoE decoders "
+            f"(pattern ('attn',), no window, no M-RoPE, etp 1); training "
+            f"RWKV-6 needs K3's backward and other blocks are not ported "
+            f"yet")
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -120,10 +143,23 @@ class MoE(nn.Module):
 class Block(nn.Module):
     def __init__(self, cfg: ArchConfig, device="cuda"):
         super().__init__()
+        self.cfg = cfg
         self.ln1 = Norm(cfg.d_model, cfg.norm, device=device)
         self.attn = Attention(_attn_cfg(cfg), device=device)
         self.ln2 = Norm(cfg.d_model, cfg.norm, device=device)
         self.moe = MoE(cfg, device=device)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                state: Optional[SolverState] = None):
+        """The full sequence: x [B, T, dm] -> (x [B, T, dm], MoEMetrics,
+        the MoE layer's new solver state)."""
+        x = x + attention(self.attn, _attn_cfg(self.cfg), self.ln1(x),
+                          positions)
+        h = self.ln2(x)
+        b, t, d = h.shape
+        h2d, metrics, state = local_moe_apply(self.moe, h.reshape(b * t, d),
+                                              self.cfg, state)
+        return x + h2d.reshape(b, t, d), metrics, state
 
 
 class RWKVBlock(nn.Module):
@@ -274,30 +310,135 @@ def load_reference_params(params_np: dict, cfg: ArchConfig,
     return model
 
 
+def _stack_trees(trees: List[dict]):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return tuple(_stack_trees([t[i] for t in trees])
+                     for i in range(len(first)))
+    return np.stack(trees)
+
+
+def reference_tree(model: Decoder,
+                   leaves: Optional[Dict[str, torch.Tensor]] = None) -> dict:
+    """The inverse of :func:`load_reference_params`: the reference's
+    parameter tree (``layout="scan"``: per-pattern-position blocks stacked
+    [reps, ...] under "layers_scan", the remainder under "layers_rem") with
+    float32 numpy leaves.
+
+    The leaves come from ``leaves``, a {parameter name: tensor} dict such as
+    gradients or Adam moments keyed like ``model.named_parameters()``; by
+    default from the model's own parameters.  So a port's gradient and the
+    reference's compare leaf by leaf."""
+    cfg = model.cfg
+    if leaves is None:
+        leaves = dict(model.named_parameters())
+
+    def get(name: str) -> np.ndarray:
+        return leaves[name].detach().float().cpu().numpy()
+
+    def norm(prefix: str, n: Norm) -> dict:
+        tree = {"scale": get(f"{prefix}.scale")}
+        if n.kind == "ln":
+            tree["bias"] = get(f"{prefix}.bias")
+        return tree
+
+    def nested(prefix: str, module: nn.Module) -> dict:
+        tree: dict = {}
+        for name, _ in module.named_parameters():  # "gn.scale" -> [gn][scale]
+            *path, last = name.split(".")
+            node = tree
+            for part in path:
+                node = node.setdefault(part, {})
+            node[last] = get(f"{prefix}.{name}")
+        return tree
+
+    blocks = []
+    for i, blk in enumerate(model.blocks):
+        pre = f"blocks.{i}"
+        tree = {"ln1": norm(f"{pre}.ln1", blk.ln1),
+                "ln2": norm(f"{pre}.ln2", blk.ln2)}
+        if isinstance(blk, RWKVBlock):
+            tree["time"] = nested(f"{pre}.time", blk.time)
+            tree["chan"] = nested(f"{pre}.chan", blk.chan)
+        else:
+            tree["attn"] = nested(f"{pre}.attn", blk.attn)
+            tree["moe"] = {"router": get(f"{pre}.moe.router"),
+                           "experts": tuple(get(f"{pre}.moe.{w}") for w in
+                                            ("w_gate", "w_up", "w_down"))}
+        blocks.append(tree)
+    out = {"embed": get("embed"),
+           "final_norm": norm("final_norm", model.final_norm)}
+    p = len(cfg.pattern)
+    reps = cfg.num_layers // p
+    if reps:
+        out["layers_scan"] = tuple(
+            _stack_trees([blocks[r * p + j] for r in range(reps)])
+            for j in range(p))
+    if cfg.num_layers % p:
+        out["layers_rem"] = tuple(blocks[reps * p:])
+    if model.head is not None:
+        out["head"] = get("head")
+    return out
+
+
 # --------------------------------------------------------------------------
-# the full-sequence forward (serving prefill, evaluation) and the loss
+# the full-sequence forward (serving prefill, evaluation, training) and the
+# losses
 # --------------------------------------------------------------------------
 
 
-def forward(model: Decoder, batch: dict, last_only: bool = False,
-            return_hidden: bool = False) -> torch.Tensor:
-    """Full forward pass over ``batch`` {"tokens": int[B, T]} -> logits
-    [B, T, V] (the reference's ``forward`` without MoE metrics or solver
-    states: the RWKV-6 decoders it runs have no MoE layer).
+class Metrics(NamedTuple):
+    loss: torch.Tensor
+    ce_loss: torch.Tensor
+    aux_loss: torch.Tensor
+    z_loss: torch.Tensor
+    balance: torch.Tensor    # mean over MoE layers of max/mean device load
+    overflow: torch.Tensor   # total capacity-overflow rows (0 in practice)
 
-    ``last_only`` computes logits for the final position only ([B, 1, V],
-    serving prefill); ``return_hidden`` returns the final-normed hidden
-    state [B, T, dm] instead of logits."""
-    check_forward(model.cfg)
-    x = model.embed[batch["tokens"]]                     # [B, T, dm]
-    for blk in model.blocks:
-        x = blk(x)
+
+def _w_out(model: Decoder) -> torch.Tensor:
+    return model.head if model.head is not None else model.embed.T
+
+
+def forward(model: Decoder, batch: dict,
+            solver_states: Optional[List[SolverState]] = None,
+            last_only: bool = False, return_hidden: bool = False):
+    """Full forward pass over ``batch`` {"tokens": int[B, T]} -> (logits
+    [B, T, V], MoEMetrics summed over layers, new solver states), as the
+    reference's ``forward``.
+
+    ``solver_states`` (from :func:`init_solver_states`) warm-starts every
+    MoE layer's LP and comes back advanced; None solves cold and returns
+    the layers' new states.  A decoder without MoE layers returns
+    ``solver_states`` as given.  ``last_only`` computes logits for the final
+    position only ([B, 1, V], serving prefill); ``return_hidden`` returns
+    the final-normed hidden state [B, T, dm] instead of logits."""
+    cfg = model.cfg
+    check_forward(cfg)
+    tokens = batch["tokens"]
+    x = model.embed[tokens]                              # [B, T, dm]
+    acc = _zero_moe(cfg, x.device)
+    new_states = solver_states
+    if _is_rwkv(cfg):
+        for blk in model.blocks:
+            x = blk(x)
+    else:
+        b, t = tokens.shape
+        positions = torch.arange(t, device=x.device)[None].expand(b, t)
+        new_states = []
+        for i, blk in enumerate(model.blocks):
+            st = None if solver_states is None else solver_states[i]
+            x, m, st = blk(x, positions, st)
+            acc = _accum(acc, m)
+            new_states.append(st)
     x = model.final_norm(x)
     if return_hidden:
-        return x
+        return x, acc, new_states
     if last_only:
         x = x[:, -1:]
-    return x @ (model.head if model.head is not None else model.embed.T)
+    return x @ _w_out(model), acc, new_states
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -307,6 +448,50 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def _chunk_nll(x: torch.Tensor, w_out: torch.Tensor, labels: torch.Tensor):
+    logits = (x @ w_out).float()                         # [B, chunk, V]
+    mask = (labels >= 0).float()
+    safe = labels.clamp(min=0)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return ((lse - tgt) * mask).sum(), mask.sum()
+
+
+def lm_loss_chunked(x: torch.Tensor, w_out: torch.Tensor,
+                    labels: torch.Tensor, chunk_t: int = 512) -> torch.Tensor:
+    """Cross entropy over hidden states x [B, T, dm] with the [B, T, V]
+    logits never held at once: the time axis goes in chunks of
+    ``chunk_t``, and each chunk's logits are recomputed in the backward
+    (activation checkpointing, as the reference's ``jax.checkpoint``).
+    Labels < 0 are masked."""
+    t = x.shape[1]
+    chunk = min(chunk_t, t)
+    nll = cnt = torch.zeros((), device=x.device)
+    for t0 in range(0, t, chunk):
+        s, c = checkpoint(_chunk_nll, x[:, t0:t0 + chunk], w_out,
+                          labels[:, t0:t0 + chunk], use_reentrant=False)
+        nll, cnt = nll + s, cnt + c
+    return nll / cnt.clamp(min=1.0)
+
+
+def loss_fn(model: Decoder, batch: dict,
+            solver_states: Optional[List[SolverState]] = None,
+            aux_coeff: float = 1e-4, z_coeff: float = 1e-4):
+    """Scalar training loss (CE + MoE aux) of ``batch`` {"tokens",
+    "labels": int[B, T]} -> (loss, Metrics, new solver states)."""
+    cfg = model.cfg
+    check_trainable(cfg)
+    hidden, moe, new_states = forward(model, batch, solver_states,
+                                      return_hidden=True)
+    ce = lm_loss_chunked(hidden, _w_out(model), batch["labels"])
+    loss = ce + aux_coeff * moe.aux_loss + z_coeff * moe.z_loss
+    metrics = Metrics(loss=loss, ce_loss=ce, aux_loss=moe.aux_loss,
+                      z_loss=moe.z_loss,
+                      balance=moe.balance / max(n_moe_layers(cfg), 1),
+                      overflow=moe.overflow)
+    return loss, metrics, new_states
 
 
 # --------------------------------------------------------------------------

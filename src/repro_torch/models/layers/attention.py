@@ -1,6 +1,7 @@
-"""Multi-head attention for decode: GQA/MQA, QKV bias, qk-norm,
-soft-capping, RoPE and a per-slot KV cache (twin of the decode path of
-``repro.models.layers.attention``).
+"""Multi-head attention: GQA/MQA, QKV bias, qk-norm, soft-capping, RoPE;
+the causal full-sequence path (training and prefill, dense or in query
+chunks) and the decode path with a per-slot KV cache (twin of
+``repro.models.layers.attention``, global attention).
 
 Attention is plain tensor code in the reference, so it stays plain PyTorch
 (einsum and softmax as written there).
@@ -16,8 +17,8 @@ from torch import nn
 from .norms import rms_norm
 from .rope import apply_rope
 
-__all__ = ["AttnConfig", "Attention", "init_attention", "KVCache",
-           "init_kv_cache", "decode_attention"]
+__all__ = ["AttnConfig", "Attention", "init_attention", "attention",
+           "KVCache", "init_kv_cache", "decode_attention"]
 
 NEG_INF = -2.0e38
 
@@ -97,6 +98,57 @@ def _project_qkv(p: Attention, cfg: AttnConfig, x: torch.Tensor,
         q, k = rms_norm(p.qnorm, q), rms_norm(p.knorm, k)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _sdpa(cfg: AttnConfig, q, k, v, mask):
+    """q: [B, Hq, Tq, D]; k/v: [B, Hkv, Tk, D]; mask: [1, 1, Tq, Tk]
+    (0 where allowed, NEG_INF where not), added to the scores."""
+    b, hq, tq, hd = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    qf = q.float() * (hd ** -0.5)
+    scores = torch.einsum("bghtd,bhsd->bghts",
+                          qf.reshape(b, g, hkv, tq, hd), k.float())
+    if cfg.logit_softcap > 0:
+        c = cfg.logit_softcap
+        scores = torch.tanh(scores / c) * c
+    scores = scores + mask[:, None]
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bghts,bhsd->bghtd", w, v.float())
+    return out.reshape(b, hq, tq, hd).to(q.dtype)
+
+
+def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+    ok = q_pos[:, None] >= k_pos[None, :]
+    return torch.where(ok, 0.0, NEG_INF)[None, None]
+
+
+def _chunked_sdpa(cfg: AttnConfig, q, k, v, cq: int):
+    """Causal attention in query chunks of ``cq``: one [cq, T] score tile
+    at a time instead of [T, T] (the reference's flash-style path for
+    global layers, whose KV band is the whole prefix)."""
+    t = q.shape[2]
+    k_pos = torch.arange(t, device=q.device)
+    outs = [_sdpa(cfg, q[:, :, c0:c0 + cq], k, v,
+                  _causal_mask(c0 + torch.arange(cq, device=q.device), k_pos))
+            for c0 in range(0, t, cq)]
+    return torch.cat(outs, dim=2)
+
+
+def attention(p: Attention, cfg: AttnConfig, x: torch.Tensor,
+              positions: torch.Tensor, chunk_q: int = 1024) -> torch.Tensor:
+    """Training/prefill causal self-attention: x [B, T, dm], positions
+    [B, T] -> [B, T, dm].  Sequences longer than 2·``chunk_q`` (and a
+    multiple of it) take the query-chunked path, shorter ones the dense
+    [T, T] mask, as in the reference."""
+    b, t, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    if t > 2 * chunk_q and t % chunk_q == 0:
+        out = _chunked_sdpa(cfg, q, k, v, chunk_q)
+    else:
+        i = torch.arange(t, device=x.device)
+        out = _sdpa(cfg, q, k, v, _causal_mask(i, i))
+    return out.transpose(1, 2).reshape(b, t, -1) @ p.wo
 
 
 def decode_attention(p: Attention, cfg: AttnConfig, x: torch.Tensor,

@@ -6,6 +6,9 @@ the monolithic single-device path):
          -> weighted top-K merge
 
 The scheduler's solver state (warm start) threads through micro-batches.
+Gradients flow through the gate weights, the auxiliary losses, the
+dispatch gather, the expert FFN (K1b on a CUDA device), the combine and
+the top-k merge; the schedule and its solver state carry none.
 """
 from __future__ import annotations
 
@@ -63,6 +66,8 @@ def moe_ffn(
                       device=x.device).scatter_add_(0, ex, torch.ones_like(ex))
     input_eg = cnt[:st.num_experts, None]                 # [E, G=1]
 
+    if state is not None:
+        state = SolverState(x=state.x.detach())
     sched = spec.scheduler(input_eg, state)
     plan = D.make_plan(st, ex, sched.flow, 0)
     flat = D.dispatch(st, plan, rows)

@@ -2,9 +2,10 @@
 through ``repro_torch.launch.runtime.make_forward_fn``) against the
 reference ``forward`` on rwkv6-7b's smoke config (2 layers, d_model 256,
 4 heads × 64), with the reference weights carried over by the port's
-loader: full logits, the last position only and the LM loss.  Also: the
-entry points run on ``cuda`` unless asked for the CPU, and the serving path
-refuses an RWKV-6 config with a clear error."""
+loader: full logits, the last position only and the LM loss; and the
+attention + MoE forward on olmoe-1b-7b's and paper-gpt-32x1.3b's smoke
+configs.  Also: the entry points run on ``cuda`` unless asked for the CPU,
+and the serving path refuses an RWKV-6 config with a clear error."""
 import dataclasses
 
 import jax
@@ -61,7 +62,7 @@ def test_forward_hidden_feeds_the_tied_head(rwkv):
     head (the embedding's transpose) turns into the reference logits."""
     model, tokens, _, expect, _ = rwkv
     hidden = tdec.forward(model, {"tokens": torch.tensor(tokens)},
-                          return_hidden=True)
+                          return_hidden=True)[0]
     assert hidden.shape == (B, T, model.cfg.d_model)
     np.testing.assert_allclose((hidden @ model.embed.T).numpy(),
                                expect[False], **TOL)
@@ -90,14 +91,47 @@ def test_forward_fn_defaults_to_cuda(rwkv):
 
 
 def test_forward_refuses_attention_configs():
-    cfg = TorchArchConfig(**dataclasses.asdict(
-        get_config("paper-gpt-32x1.3b").smoke()))
-    model = tdec.init_params(cfg, device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
-    with pytest.raises(ValueError, match="attention prefill"):
-        make_forward_fn(model, device="cpu")(batch)
-    with pytest.raises(ValueError, match="attention prefill"):
-        tdec.forward(model, batch)
+    """The forward runs global-attention MoE decoders now; it still refuses
+    the attention blocks not ported yet (sliding window, M-RoPE, dense
+    FFN)."""
+    base = get_config("paper-gpt-32x1.3b").smoke()
+    for change in (dict(window=8), dict(mrope_sections=(8, 12, 12)),
+                   dict(moe=False)):
+        cfg = TorchArchConfig(**dataclasses.asdict(
+            dataclasses.replace(base, **change)))
+        with pytest.raises(ValueError, match="attention prefill"):
+            tdec.check_forward(cfg)
+    tdec.check_forward(TorchArchConfig(**dataclasses.asdict(base)))
+
+
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "paper-gpt-32x1.3b"])
+def test_moe_forward_matches_reference(name):
+    """The attention + MoE forward against the reference's ``forward``:
+    logits, the layer-summed MoE metrics and the new solver states, cold
+    and then warm-started from the first call's states."""
+    ref_cfg = get_config(name).smoke()
+    params = rdec.init_params(jax.random.PRNGKey(4), ref_cfg)
+    cfg = TorchArchConfig(**dataclasses.asdict(ref_cfg))
+    model = tdec.load_reference_params(
+        jax.tree_util.tree_map(np.asarray, params), cfg, device="cpu")
+    tokens = np.random.default_rng(6).integers(
+        0, cfg.vocab, size=(B, T)).astype(np.int32)
+    fwd = jax.jit(lambda p, toks, st: rdec.forward(
+        p, ref_cfg, {"tokens": toks}, rdec.Runtime(impl="ref"), st))
+    r_states = rdec.init_solver_states(ref_cfg, 1)
+    t_states = tdec.init_solver_states(cfg, 1, device="cpu")
+    for _ in range(2):
+        logits, moe, r_states = fwd(params, jnp.asarray(tokens), r_states)
+        got, t_moe, t_states = tdec.forward(
+            model, {"tokens": torch.tensor(tokens).long()}, t_states)
+        np.testing.assert_allclose(got.numpy(), np.asarray(logits), **TOL)
+        for k in ("aux_loss", "z_loss", "max_load", "balance", "overflow"):
+            np.testing.assert_allclose(float(getattr(t_moe, k)),
+                                       float(getattr(moe, k)), rtol=1e-5,
+                                       err_msg=k)
+        np.testing.assert_array_equal(
+            np.stack([s.x.numpy() for s in t_states]),
+            np.asarray(r_states["scan"][0].x))
 
 
 def test_serving_refuses_rwkv_configs(rwkv):
@@ -109,3 +143,43 @@ def test_serving_refuses_rwkv_configs(rwkv):
     with pytest.raises(ValueError, match="RWKV-6 decode"):
         ServingSession(model.cfg, ServeConfig(max_batch=1, max_seq=8),
                        device="cpu", model=model)
+
+
+@pytest.mark.parametrize("chunk_t", [16, 5], ids=["one-chunk", "ragged"])
+def test_lm_loss_chunked_matches_reference(chunk_t):
+    """The chunked cross entropy and its gradients against the reference's
+    (which pads the last chunk; the port takes it short), with masked
+    labels."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((B, T, 32)).astype(np.float32)
+    w = (rng.standard_normal((32, 50)) * 0.3).astype(np.float32)
+    labels = rng.integers(-1, 50, size=(B, T)).astype(np.int32)
+    loss, grads = jax.value_and_grad(
+        lambda a, b: rdec.lm_loss_chunked(a, b, jnp.asarray(labels),
+                                          chunk_t=chunk_t),
+        argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    xt, wt = (torch.tensor(a, requires_grad=True) for a in (x, w))
+    got = tdec.lm_loss_chunked(xt, wt, torch.tensor(labels).long(),
+                               chunk_t=chunk_t)
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(loss), rtol=1e-6)
+    for t, g in zip((xt, wt), grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), **TOL)
+
+
+def test_parameters_take_gradients_only_for_training():
+    """Serving and the forward build no graph; training turns every
+    parameter's gradient on."""
+    from repro_torch.train.loop import init_train_state
+    cfg = TorchArchConfig(**dataclasses.asdict(
+        get_config("olmoe-1b-7b").smoke()))
+    model = tdec.init_params(cfg, device="cpu")
+    assert not any(p.requires_grad for p in model.parameters())
+    state = tdec.init_decode_state(cfg, 1, 8, device="cpu")
+    logits, _ = tdec.decode_step(model, state, {"tokens": torch.zeros(
+        (1, 1), dtype=torch.long)})
+    init_train_state(cfg, device="cpu", model=model)
+    assert all(p.requires_grad for p in model.parameters())
+    out = make_forward_fn(model, device="cpu")(
+        {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    assert logits.grad_fn is None and out.grad_fn is None

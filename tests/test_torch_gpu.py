@@ -1,6 +1,7 @@
-"""Tests of the port that need the card: K1, K2, K3 and K4 (CUDA kernels,
-with no CPU or interpret mode) against their plain versions on the same
-inputs, and K1 and K3 against their own arithmetic in plain PyTorch.
+"""Tests of the port that need the card: K1, K1b, K2, K3 and K4 (CUDA
+kernels, with no CPU or interpret mode) against their plain versions on the
+same inputs, K1 and K3 against their own arithmetic in plain PyTorch, and
+the training step on the card against the CPU's plain path.
 They skip without a CUDA device.  This file imports no JAX, so it also runs where JAX
 is not installed:
 
@@ -11,7 +12,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.launch import time_k4
+from repro_torch.kernels.grouped_matmul import (grouped_ffn_flat_bwd_cuda,
+                                               grouped_ffn_flat_cuda)
+from repro_torch.launch import check_train, time_k1b, time_k4
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -339,3 +342,135 @@ def test_cuda_scheduler_is_one_k4_launch(monkeypatch):
     for input_eg in batches:
         state = scheduler(input_eg, state).solver_state
     assert schedule_cuda.launches - before == len(batches)
+
+
+# ----------------------------------------------- K1b and the training step
+
+K1B_CASES = {                    # bm, counts (empty and one-row groups), H, F
+    "bm8-ragged": (8, [3, 0, 9, 1, 0, 4], 200, 300),
+    "bm8-one-row": (8, [1, 1, 0, 1], 64, 30),
+    "bm128": (128, [100, 0, 250], 128, 512),
+    "unaligned": (8, [5, 2, 0, 7, 1], 199, 301),
+}
+
+
+def _k1b_case(name, seed=31):
+    bm, counts, h, f = K1B_CASES[name]
+    x, start, end, wg, wu, wd = _on_card(_flat_case(seed, bm, counts, h, f),
+                                         torch.float32)
+    dout = torch.tensor(np.random.default_rng(seed + 1).standard_normal(
+        tuple(x.shape)), dtype=torch.float32, device="cuda")
+    return x, start, end, wg, wu, wd, dout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "relu_sq"])
+@pytest.mark.parametrize("case", list(K1B_CASES))
+def test_cuda_k1b_matches_plain_version(case, activation):
+    """K1b against ``ref.grouped_ffn_flat_bwd_ref`` on ragged groups (empty,
+    one-row, bm 8 and 128, H and F not multiples of the tiles), f32 at
+    2e-5; dx exactly zero outside every group."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1b is a CUDA kernel)")
+    x, start, end, wg, wu, wd, dout = _k1b_case(case)
+    got = grouped_ffn_flat_bwd_cuda(x, start.int(), end.int(), wg, wu, wd,
+                                    dout, activation)
+    expect = ref.grouped_ffn_flat_bwd_ref(x, start, end, wg, wu, wd, dout,
+                                          activation)
+    for g, e in zip(got, expect):
+        torch.testing.assert_close(g, e, **F32_TOL)
+    assert bool((got[0][~_member(x, start, end)] == 0).all())
+
+
+@pytest.mark.gpu
+def test_cuda_k1b_training_geometry():
+    """K1 and K1b at olmoe-1b-7b's training geometry (N 49 664, 16 384 rows
+    in groups, H 2048, F 1024) within rtol 1e-4 and an atol of 1e-5 of each
+    output's largest magnitude of their plain versions, K1b twice equal bit
+    for bit (``time_k1b.measure`` raises otherwise)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1b is a CUDA kernel)")
+    r = time_k1b.measure(torch.device("cuda", 0), timed=False)
+    assert r["n"] == 49664 and r["rows"] == 16384
+
+
+@pytest.mark.gpu
+def test_cuda_k1b_repeats_bit_for_bit():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1b is a CUDA kernel)")
+    x, start, end, wg, wu, wd, dout = _k1b_case("unaligned")
+    args = (x, start.int(), end.int(), wg, wu, wd, dout, "geglu")
+    one, two = grouped_ffn_flat_bwd_cuda(*args), grouped_ffn_flat_bwd_cuda(
+        *args)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "relu_sq"])
+def test_cuda_autograd_gradients_are_k1b(activation):
+    """The gradients autograd gives through ``ops.grouped_ffn_flat`` on the
+    card are K1b's outputs, bit for bit: one K1 and one K1b launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1b is a CUDA kernel)")
+    x, start, end, wg, wu, wd, dout = _k1b_case("bm8-ragged")
+    leaves = [t.clone().requires_grad_(True) for t in (x, wg, wu, wd)]
+    k1, k1b = grouped_ffn_flat_cuda.launches, \
+        grouped_ffn_flat_bwd_cuda.launches
+    out = ops.grouped_ffn_flat(leaves[0], start, end, *leaves[1:],
+                               activation=activation, bm=8)
+    out.backward(dout)
+    assert grouped_ffn_flat_cuda.launches - k1 == 1
+    assert grouped_ffn_flat_bwd_cuda.launches - k1b == 1
+    expect = grouped_ffn_flat_bwd_cuda(x, start.int(), end.int(), wg, wu, wd,
+                                       dout, activation)
+    assert all(torch.equal(leaf.grad, e) for leaf, e in zip(leaves, expect))
+
+
+@pytest.mark.gpu
+def test_cuda_k1_without_grad_builds_no_graph():
+    """Serving (no gradient asked for) saves nothing for a backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 is a CUDA kernel)")
+    x, start, end, wg, wu, wd, _ = _k1b_case("bm8-ragged")
+    wg.requires_grad_(True)
+    with torch.no_grad():
+        out = ops.grouped_ffn_flat(x, start, end, wg, wu, wd, bm=8)
+    assert out.grad_fn is None and not out.requires_grad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", check_train.CONFIGS)
+def test_cuda_train_step_matches_cpu(name):
+    """One train step on the card against the CPU's plain path: loss
+    within 2e-4, gradients rtol 1e-4 / atol 1e-5, Adam moments rtol 2e-2 /
+    atol 2e-4 (``check_train.card_vs_cpu`` raises otherwise)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1, K1b and K4 are CUDA kernels)")
+    check_train.card_vs_cpu(name, torch.device("cuda", 0))
+
+
+@pytest.mark.gpu
+def test_cuda_train_step_runs_each_kernel_per_layer_and_micro_batch():
+    """Every MoE layer of every micro-batch launches K1, K1b and K4 once,
+    two steps running, and no plain version of any of them runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1, K1b and K4 are CUDA kernels)")
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import decoder as dec
+    from repro_torch.train.loop import init_train_state, make_train_step
+    cfg = get_config("olmoe-1b-7b").smoke()
+    ts = init_train_state(cfg, seed=1)
+    step = make_train_step(cfg, n_micro=2)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=16, batch=4, seed=2)
+    before = check_train.kernel_launches()
+    with check_train.count_plain_calls() as plain:
+        for i in range(2):
+            ts, m = step(ts, data.batch_at(i))
+            assert torch.isfinite(m["loss"]) and torch.isfinite(
+                m["grad_norm"])
+    expect = 2 * 2 * dec.n_moe_layers(cfg)
+    assert {k: v - before[k] for k, v in
+            check_train.kernel_launches().items()} == dict.fromkeys(
+        ("K1", "K1b", "K4"), expect)
+    assert not any(plain.values()), plain

@@ -39,6 +39,13 @@ def test_port_imports_no_jax_and_no_reference(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+def test_isolation_covers_every_port_package():
+    """The import checks above walk every package of the port, the training
+    step's ``optim``, ``data`` and ``train`` among them."""
+    pkgs = {p.parent.name for p in PORT_FILES if p.name == "__init__.py"}
+    assert {"optim", "data", "train", "kernels", "models", "moe"} <= pkgs
+
+
 def test_port_imports_with_jax_unimportable():
     code = (
         "import sys\n"

@@ -1,7 +1,9 @@
-"""The port's plain K1 and K2 (``repro_torch.kernels``) against the JAX
-reference: the same numpy inputs, made from a seed, go through both.  The
-CUDA kernels themselves run only on the card (``chip_smoke.py``,
+"""The port's plain K1, K1b and K2 (``repro_torch.kernels``) against the
+JAX reference: the same numpy inputs, made from a seed, go through both
+(K1b against ``jax.vjp`` of the reference's plain K1).  The CUDA kernels
+themselves run only on the card (``chip_smoke.py``,
 ``test_torch_gpu.py``)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,6 +13,7 @@ from repro.kernels import ops, ref
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.grouped_matmul import (grouped_ffn_cuda,
+                                               grouped_ffn_flat_bwd_cuda,
                                                grouped_ffn_flat_cuda)
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -226,3 +229,78 @@ def test_blocked_k1_items_across_tiles(bm, counts):
     got = tref.grouped_ffn_flat_blocked_ref(*t, bm=bm)
     expect = tref.grouped_ffn_flat_ref(*t)
     np.testing.assert_allclose(got.numpy(), expect.numpy(), **F32_TOL)
+
+
+# ------------------------------------------------- K1b: K1's backward
+
+BWD_TOL = dict(rtol=1e-5, atol=1e-5)
+BWD_CASES = {                    # bm, counts (empty and one-row groups), H, F
+    "bm8-ragged": (8, [3, 0, 9, 1, 0, 4], 24, 40),
+    "bm8-one-row": (8, [1, 1, 0, 1], 16, 24),
+    "bm128": (128, [100, 0, 250], 32, 48),
+}
+
+
+def _ref_vjp(x, start, end, wg, wu, wd, dout, activation):
+    def f(x, wg, wu, wd):
+        return ref.grouped_ffn_flat_ref(x, jnp.asarray(start),
+                                        jnp.asarray(end), wg, wu, wd,
+                                        activation)
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (x, wg, wu, wd)))
+    return [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "relu_sq"])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_plain_k1b_matches_reference_vjp(case, activation):
+    """K1b's plain version, by explicit formulas, against ``jax.vjp`` of the
+    reference's plain K1: dx, dWg, dWu, dWd at 1e-5 (f32)."""
+    bm, counts, h, f = BWD_CASES[case]
+    x, start, end, wg, wu, wd = _flat_case(21, bm, counts, h, f)
+    dout = np.random.default_rng(22).standard_normal(x.shape).astype(
+        np.float32)
+    expect = _ref_vjp(x, start, end, wg, wu, wd, dout, activation)
+    got = tref.grouped_ffn_flat_bwd_ref(
+        *(torch.tensor(a) for a in (x, start, end, wg, wu, wd, dout)),
+        activation=activation)
+    for name, g, e in zip(("dx", "dWg", "dWu", "dWd"), got, expect):
+        np.testing.assert_allclose(g.numpy(), e, err_msg=name, **BWD_TOL)
+    rows = np.arange(len(x))
+    member = ((rows[None] >= start[:, None])
+              & (rows[None] < end[:, None])).any(0)
+    assert (got[0].numpy()[~member] == 0).all()
+    for w, c in zip(got[1], counts):       # dWg of an empty group is zero
+        assert (w.numpy() == 0).all() == (c == 0)
+
+
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "relu_sq"])
+def test_plain_k1_autograd_equals_plain_k1b(activation):
+    """On the CPU, autograd of the plain K1 (the training path there) gives
+    K1b's plain version."""
+    bm, counts, h, f = BWD_CASES["bm8-ragged"]
+    x, start, end, wg, wu, wd = _flat_case(23, bm, counts, h, f)
+    dout = torch.tensor(np.random.default_rng(24).standard_normal(
+        x.shape).astype(np.float32))
+    leaves = [torch.tensor(a, requires_grad=True) for a in (x, wg, wu, wd)]
+    st, en = torch.tensor(start), torch.tensor(end)
+    out = tops.grouped_ffn_flat(leaves[0], st, en, *leaves[1:],
+                                activation=activation, bm=bm)
+    out.backward(dout)
+    expect = tref.grouped_ffn_flat_bwd_ref(
+        *(a.detach() for a in leaves[:1]), st, en,
+        *(a.detach() for a in leaves[1:]), dout, activation=activation)
+    for leaf, e in zip(leaves, expect):
+        np.testing.assert_allclose(leaf.grad.numpy(), e.numpy(), **BWD_TOL)
+
+
+def test_k1b_rejects_cpu_tensors_and_bf16():
+    """K1b runs on the card only, and in f32 only: bf16 is refused with a
+    pointer to the open work."""
+    x, start, end, wg, wu, wd = _flat_case(4, 8, [3, 5], 16, 16)
+    t = [torch.tensor(a) for a in (x, start, end, wg, wu, wd)]
+    dout = torch.ones_like(t[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        grouped_ffn_flat_bwd_cuda(t[0], t[1].int(), t[2].int(), *t[3:], dout)
+    bf = [a.to(torch.bfloat16) for a in (t[0], *t[3:], dout)]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        grouped_ffn_flat_bwd_cuda(bf[0], t[1].int(), t[2].int(), *bf[1:])
