@@ -22,10 +22,11 @@ plain PyTorch.  The source is compiled on first use
 counts its own calls, one launch of the pair each.
 
 K1b computes the gradient that the reference takes with ``jax.grad`` of
-its plain K1 (``ref.grouped_ffn_flat_bwd_ref`` is its plain version), in
-three launches counted as one.  :class:`GroupedFFNFlat` is the autograd
-function around K1 (forward) and K1b (backward); it saves its inputs only
-when a gradient is asked for, so serving pays nothing.
+its plain K1 (``ref.grouped_ffn_flat_bwd_ref`` is its plain version,
+``ref.grouped_ffn_flat_bwd_3xtf32_ref`` its own 3xTF32 arithmetic), in
+four tensor-core launches counted as one.  :class:`GroupedFFNFlat` is the
+autograd function around K1 (forward) and K1b (backward); it saves its
+inputs only when a gradient is asked for, so serving pays nothing.
 """
 from __future__ import annotations
 

@@ -4,8 +4,9 @@ Each hand-written kernel's semantics are defined here; the CPU tests hold
 these against the JAX oracles, and ``chip_smoke.py`` holds each kernel
 against its plain version on the card, on inputs drawn by ``wkv6_inputs``
 for K3.  ``grouped_ffn_flat_bwd_ref`` is K1b's: the gradient of K1, which
-the reference takes with ``jax.grad`` of its plain K1.  K4's plain
-version, ``schedule_ref``, composes the scheduler core
+the reference takes with ``jax.grad`` of its plain K1, and
+``grouped_ffn_flat_bwd_3xtf32_ref`` repeats K1b's own 3xTF32 arithmetic.
+K4's plain version, ``schedule_ref``, composes the scheduler core
 (``repro_torch.core``), whose reference twin is the in-graph solver,
 rounding and routing of ``repro.core``.
 """
@@ -21,7 +22,8 @@ from ..core.routing import route_tokens
 from ..core.solver import device_loads, solve_replica_loads
 
 __all__ = ["schedule_ref", "grouped_ffn_ref", "grouped_ffn_flat_ref",
-           "grouped_ffn_flat_bwd_ref", "grouped_ffn_flat_blocked_ref",
+           "grouped_ffn_flat_bwd_ref", "grouped_ffn_flat_bwd_3xtf32_ref",
+           "grouped_ffn_flat_blocked_ref",
            "wkv6_chunk_ref", "wkv6_subchunk_ref", "wkv6_inputs"]
 
 
@@ -103,6 +105,37 @@ def _act_and_grad(g: torch.Tensor, activation: str):
     raise ValueError(activation)
 
 
+def _mm(*pairs) -> torch.Tensor:
+    """Σ a @ b over ``pairs``, added left to right."""
+    out = pairs[0][0] @ pairs[0][1]
+    for a, b in pairs[1:]:
+        out = out + a @ b
+    return out
+
+
+def _flat_bwd(x, group_start, group_end, w_gate, w_up, w_down, dout,
+              activation, mm):
+    """K1b's formulas with every matrix product taken by ``mm``."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    dx = torch.zeros(x.shape, dtype=acc, device=x.device)
+    dwg = torch.zeros(w_gate.shape, dtype=acc, device=x.device)
+    dwu = torch.zeros(w_up.shape, dtype=acc, device=x.device)
+    dwd = torch.zeros(w_down.shape, dtype=acc, device=x.device)
+    for g, s, e in _groups(group_start, group_end):
+        xg, dog = x[s:e].to(acc), dout[s:e].to(acc)
+        wg, wu, wd = (w[g].to(acc) for w in (w_gate, w_up, w_down))
+        hg, hu = mm((xg, wg)), mm((xg, wu))
+        a, da = _act_and_grad(hg, activation)
+        dh = mm((dog, wd.T))
+        du = dh * a
+        dg = dh * hu * da
+        dx[s:e] = mm((dg, wg.T), (du, wu.T))
+        dwg[g], dwu[g] = mm((xg.T, dg)), mm((xg.T, du))
+        dwd[g] = mm(((a * hu).T, dog))
+    return (dx.to(x.dtype), dwg.to(w_gate.dtype), dwu.to(w_up.dtype),
+            dwd.to(w_down.dtype))
+
+
 def grouped_ffn_flat_bwd_ref(
     x: torch.Tensor,            # [N, H]
     group_start: torch.Tensor,  # int[S]
@@ -122,25 +155,50 @@ def grouped_ffn_flat_bwd_ref(
         dWg = xᵀ·dg,  dWu = xᵀ·du,  dWd = (act(g) ⊙ u)ᵀ·dout
 
     summed over R only.  Rows outside every group get dx = 0 and add
-    nothing; an empty group's weight gradients are zeros.  In float32;
-    -> (dx in x's type, dWg, dWu, dWd in the weights' type)."""
-    f32 = torch.float32
-    dx = torch.zeros(x.shape, dtype=f32, device=x.device)
-    dwg = torch.zeros(w_gate.shape, dtype=f32, device=x.device)
-    dwu = torch.zeros(w_up.shape, dtype=f32, device=x.device)
-    dwd = torch.zeros(w_down.shape, dtype=f32, device=x.device)
-    for g, s, e in _groups(group_start, group_end):
-        xg, dog = x[s:e].float(), dout[s:e].float()
-        wg, wu, wd = w_gate[g].float(), w_up[g].float(), w_down[g].float()
-        hg, hu = xg @ wg, xg @ wu
-        a, da = _act_and_grad(hg, activation)
-        dh = dog @ wd.T
-        du = dh * a
-        dg = dh * hu * da
-        dx[s:e] = dg @ wg.T + du @ wu.T
-        dwg[g], dwu[g], dwd[g] = xg.T @ dg, xg.T @ du, (a * hu).T @ dog
-    return (dx.to(x.dtype), dwg.to(w_gate.dtype), dwu.to(w_up.dtype),
-            dwd.to(w_down.dtype))
+    nothing; an empty group's weight gradients are zeros.  In float32
+    (float64 for float64 inputs); -> (dx in x's type, dWg, dWu, dWd in the
+    weights' type)."""
+    return _flat_bwd(x, group_start, group_end, w_gate, w_up, w_down, dout,
+                     activation, _mm)
+
+
+K1B_SLICE = 32   # K1b's k per partial sum
+
+
+def _mm_sliced_3xtf32(*pairs) -> torch.Tensor:
+    """Σ a @ b over ``pairs`` as K1b's tensor cores take it: K cut into
+    slices of ``K1B_SLICE`` from the start of each pair, every slice's
+    product in 3xTF32 (``_mm_3xtf32``) and added to the running total in
+    float32, pair after pair."""
+    total = None
+    for a, b in pairs:
+        for k0 in range(0, a.shape[1], K1B_SLICE):
+            part = _mm_3xtf32(a[:, k0:k0 + K1B_SLICE], b[k0:k0 + K1B_SLICE])
+            total = part if total is None else total + part
+    return total
+
+
+def grouped_ffn_flat_bwd_3xtf32_ref(
+    x: torch.Tensor,            # [N, H] float32
+    group_start: torch.Tensor,  # int[S]
+    group_end: torch.Tensor,    # int[S]
+    w_gate: torch.Tensor,       # [S, H, F]
+    w_up: torch.Tensor,         # [S, H, F]
+    w_down: torch.Tensor,       # [S, F, H]
+    dout: torch.Tensor,         # [N, H]
+    activation: str = "swiglu",
+):
+    """K1b's own arithmetic in plain PyTorch: the formulas of
+    ``grouped_ffn_flat_bwd_ref`` with every product split into TF32 parts
+    as the kernel's tensor cores take them (3xTF32) and summed slice by
+    slice as the kernel sums them: 32-deep slices of H (g, u, dh), of F for
+    dg·Wgᵀ then of F for du·Wuᵀ (dx), of the group's rows from its start
+    (the weight gradients), each slice added to a float32 total.  Two
+    things differ from the kernel: the sums inside a slice run in another
+    order, and PyTorch rounds them to nearest where the tensor cores
+    truncate.  float32 only."""
+    return _flat_bwd(x, group_start, group_end, w_gate, w_up, w_down, dout,
+                     activation, _mm_sliced_3xtf32)
 
 
 K1_ROWS = 8                 # K1's rows per work item

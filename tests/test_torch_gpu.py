@@ -1,7 +1,8 @@
 """Tests of the port that need the card: K1, K1b, K2, K3 and K4 (CUDA
 kernels, with no CPU or interpret mode) against their plain versions on the
-same inputs, K1 and K3 against their own arithmetic in plain PyTorch, and
-the training step on the card against the CPU's plain path.
+same inputs, K1, K1b and K3 against their own arithmetic in plain PyTorch,
+K1b and K3 against float64, and the training step on the card against the
+CPU's plain path.
 They skip without a CUDA device.  This file imports no JAX, so it also runs where JAX
 is not installed:
 
@@ -380,6 +381,39 @@ def test_cuda_k1b_matches_plain_version(case, activation):
     for g, e in zip(got, expect):
         torch.testing.assert_close(g, e, **F32_TOL)
     assert bool((got[0][~_member(x, start, end)] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "relu_sq"])
+@pytest.mark.parametrize("case", list(K1B_CASES))
+def test_cuda_k1b_matches_its_3xtf32_arithmetic(case, activation):
+    """K1b against its own arithmetic in plain PyTorch
+    (``ref.grouped_ffn_flat_bwd_3xtf32_ref``: the same TF32 parts and
+    32-deep slices) at 1e-5: only the order inside a slice and the tensor
+    cores' truncating adds differ."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1b is a CUDA kernel)")
+    x, start, end, wg, wu, wd, dout = _k1b_case(case)
+    got = grouped_ffn_flat_bwd_cuda(x, start.int(), end.int(), wg, wu, wd,
+                                    dout, activation)
+    expect = ref.grouped_ffn_flat_bwd_3xtf32_ref(x, start, end, wg, wu, wd,
+                                                 dout, activation)
+    for g, e in zip(got, expect):
+        torch.testing.assert_close(g, e, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_k1b_as_accurate_as_plain_f32():
+    """At olmoe-1b-7b's training geometry, each of K1b's outputs is at most
+    twice as far from the plain K1b in float64 as the f32 plain version is:
+    the tensor cores' truncating accumulation does not build up over the
+    2048-deep sums (``time_k1b.float64_guard`` raises otherwise)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1b is a CUDA kernel)")
+    x, start, end, w, dout = time_k1b.training_inputs(torch.device("cuda", 0))
+    got = grouped_ffn_flat_bwd_cuda(x, start.int(), end.int(), *w, dout)
+    errs = time_k1b.float64_guard(x, start, end, w, dout, got)
+    assert all(a <= time_k1b.GUARD * p for a, p in errs.values()), errs
 
 
 @pytest.mark.gpu

@@ -274,6 +274,29 @@ def test_plain_k1b_matches_reference_vjp(case, activation):
 
 
 @pytest.mark.parametrize("activation", ["swiglu", "geglu", "relu_sq"])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_k1b_3xtf32_arithmetic_matches_reference_vjp(case, activation):
+    """K1b's own arithmetic in plain PyTorch (3xTF32 products summed in
+    32-deep slices, ``ref.grouped_ffn_flat_bwd_3xtf32_ref``) against
+    ``jax.vjp`` of the reference's plain K1: dx, dWg, dWu, dWd at 1e-5
+    (f32), dx zero outside every group."""
+    bm, counts, h, f = BWD_CASES[case]
+    x, start, end, wg, wu, wd = _flat_case(25, bm, counts, h, f)
+    dout = np.random.default_rng(26).standard_normal(x.shape).astype(
+        np.float32)
+    expect = _ref_vjp(x, start, end, wg, wu, wd, dout, activation)
+    got = tref.grouped_ffn_flat_bwd_3xtf32_ref(
+        *(torch.tensor(a) for a in (x, start, end, wg, wu, wd, dout)),
+        activation=activation)
+    for name, g, e in zip(("dx", "dWg", "dWu", "dWd"), got, expect):
+        np.testing.assert_allclose(g.numpy(), e, err_msg=name, **BWD_TOL)
+    rows = np.arange(len(x))
+    member = ((rows[None] >= start[:, None])
+              & (rows[None] < end[:, None])).any(0)
+    assert (got[0].numpy()[~member] == 0).all()
+
+
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "relu_sq"])
 def test_plain_k1_autograd_equals_plain_k1b(activation):
     """On the CPU, autograd of the plain K1 (the training path there) gives
     K1b's plain version."""
