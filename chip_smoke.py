@@ -44,7 +44,20 @@ Phases, in order; any failure raises and exits nonzero:
      strongest drawn); tensors whose addresses are not 16-byte aligned
      (one element past an allocation) give the same result as aligned
      ones; prints the share of each check's allowance used; times K3 and
-     the plain version at the forward's geometry on rwkv6-7b's decays;
+     the plain version at the forward's geometry on rwkv6-7b's decays.
+     Then K3s (K3 with state in and state out, ``ops.wkv6(..., state=)``;
+     ``launch/time_k3.check_state``) against its plain version from random
+     nonzero states, o and the final state, f32 (rtol = atol = 1e-4) and
+     bf16 (5e-2): T in 1, 7, 15, 16, 17, 100, 2048 (both sides of the
+     switch from the step-by-step to the sub-chunk kernel at 16), D 40 and
+     128, and the decode geometry of phase 14 (256, 1, 64) on rwkv6-7b's
+     decays; K3 over T 2048 equals K3s over its two halves with the state
+     carried, and 64 chained T 1 calls equal the plain version's 64 steps;
+     two calls equal bit for bit; after 512 chained decode steps K3s's
+     state is at most twice as far from the plain version in float64 as
+     the f32 plain version; unaligned tensors give the same result; times
+     K3s at the decode geometry and at T 2048 beside the plain version and
+     the byte bound;
   8. rwkv6-7b at full width and depth (32 layers, d_model 4096, 64 heads,
      f32 weights drawn on the card from a seeded generator) through
      ``make_forward_fn``: serving prefill (``last_only``) of 4 × 2048
@@ -89,7 +102,31 @@ Phases, in order; any failure raises and exits nonzero:
  13. one train step on the card against the CPU's plain path on the smoke
      configs of olmoe-1b-7b and paper-gpt-32x1.3b (``launch/
      check_train.py``): loss within 2e-4, gradients within rtol 1e-4 / atol
-     1e-5, Adam moments within rtol 2e-2 / atol 2e-4.
+     1e-5, Adam moments within rtol 2e-2 / atol 2e-4;
+ 14. serve rwkv6-7b at full width and depth (f32 weights drawn on the card
+     from a seeded generator, built for this phase and freed after it):
+     (a) teacher forcing, 2 sequences x 64 tokens one token a step against
+     ``make_forward_fn(last_only=False)`` (K3s against K3): every layer
+     decodes its own input in the forward from a zero state
+     (``RWKVBlock.decode``), its output within ``TEACHER_TOL`` of the
+     forward's largest magnitude, and the last layer's decoded output
+     through the head gives the forward's logits within ``TEACHER_TOL`` of
+     the largest logit magnitude.  Free-running ``decode_step`` over all 32
+     layers is printed beside the forward with its input perturbed by
+     1e-7, not checked: with these random weights the 32 layers amplify
+     f32 rounding differences about a million-fold; (b) 4 Poisson requests
+     (prompts of 16-32 tokens, 32 generated each) through
+     ``ServingSession`` at 4 slots: every request finishes; (c) K3s launched
+     32 x (decode steps + warm-up) times, and neither K3 nor the plain
+     ``wkv6_chunk_ref`` once; (d) the decode step's wall time (mean and
+     range over 10 steps), generated tokens/s and peak memory, then one step
+     split by synchronised timers into K3s (32 calls), the matrix products
+     and the rest, and one under ``torch.profiler``: device time by part
+     and the device's idle share;
+ 15. the serving path on the card against the CPU on rwkv6-7b smoke with
+     identical weights: two decode steps' logits within rtol = atol =
+     1e-4 and states within 1e-4 of their largest magnitude, identical
+     tokens per request.
 The last two lines are the kernels' JSON record and the result object.
 """
 from __future__ import annotations
@@ -112,6 +149,7 @@ H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12         # f32 outside the tensor cores (K1's FMA; K3's
                                # recurrence counted as f32 work, whatever unit)
 GOLDEN_ARRIVALS = [(0, 6, 5), (0, 4, 3), (2, 5, 4), (7, 6, 6), (9, 3, 3)]
+TEACHER_TOL = 1e-4   # phase 14 (a), a share of the largest magnitude
 
 
 class SmokeFailure(RuntimeError):
@@ -525,20 +563,11 @@ def phase_k2(cfg, batch: int, device) -> dict:
 # ------------------------------------------------------------ phase 7: K3
 
 
-def unaligned(a: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy of ``a`` starting one element past its allocation,
-    so that its address is not 16-byte aligned."""
-    flat = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
-    out = flat[1:].view(a.shape)
-    out.copy_(a)
-    require(out.data_ptr() % 16 != 0, "the copy is 16-byte aligned")
-    return out
-
-
 def phase_k3(fwd_geom, device) -> dict:
     """``fwd_geom``: K3's (BH, T, D) in the forward of phase 8."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.wkv6_chunk import wkv6_cuda
+    from repro_torch.launch.time_k3 import unaligned
     g = torch.Generator(device=device)
     g.manual_seed(99)
     errs_f, inputs_f = [], None
@@ -600,6 +629,26 @@ def phase_k3(fwd_geom, device) -> dict:
             "replaces": "src/repro/kernels/wkv6_chunk.py:93",
             "launches": 0, "max_abs_err": max(errs_f), "ms": k3_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def phase_k3s(device) -> dict:
+    """K3s against its plain version (``time_k3.check_state``); its record
+    at the decode geometry of phase 14."""
+    from repro_torch.launch import time_k3
+    try:
+        r = time_k3.check_state(device)
+    except AssertionError as exc:
+        raise SmokeFailure(str(exc)) from exc
+    for line in time_k3.describe_state(r).splitlines():
+        print("  " + line)
+    m = r["decode"]
+    bound_ms, bound_by = m["bound"][:2]
+    return {"name": "wkv6_state", "route": "cuda",
+            "source": "src/repro_torch/csrc/wkv6.cu",
+            "replaces": "src/repro/models/layers/rwkv6.py:108",
+            "launches": 0, "max_abs_err": r["err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
 
 
@@ -905,6 +954,267 @@ def phase_train_parity(device) -> None:
         print("  " + check_train.describe(name, r))
 
 
+# -------------------------------------------- phase 14: serve rwkv6-7b
+
+
+def rwkv_step_split(model, cfg, batch: int, device) -> dict:
+    """The decode step's wall time over 10 steps at ``batch`` slots (mean,
+    range), then one more step split by synchronised timers into K3s
+    calls, matrix products (every ``@``) and the rest, then one more under
+    the profiler: device time by part and the device's idle share."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_forward import MATMUL_MARKS, profile_device
+    from repro_torch.models import decoder as dec
+    g = torch.Generator(device=device)
+    g.manual_seed(9)
+    state = dec.init_decode_state(cfg, batch, 1, device=device)
+    toks = torch.randint(0, cfg.vocab, (batch, 1), generator=g, device=device)
+    _, state = dec.decode_step(model, state, {"tokens": toks})
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state = dec.decode_step(model, state, {"tokens": toks})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    spent = {"k3s": 0.0, "matmul": 0.0}
+    wkv6, matmul = ops.wkv6, torch.Tensor.__matmul__
+    own = torch.Tensor.__dict__.get("__matmul__")   # None: inherited
+    ops.wkv6 = sync_timed(wkv6, spent, "k3s")
+    torch.Tensor.__matmul__ = sync_timed(matmul, spent, "matmul")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec.decode_step(model, state, {"tokens": toks})
+        torch.cuda.synchronize()
+        step = (time.perf_counter() - t0) * 1e3
+    finally:
+        ops.wkv6 = wkv6
+        if own is None:
+            del torch.Tensor.__matmul__
+        else:
+            torch.Tensor.__matmul__ = own
+    k3s, mm = spent["k3s"] * 1e3, spent["matmul"] * 1e3
+
+    def run():
+        dec.decode_step(model, state, {"tokens": toks})
+        torch.cuda.synchronize()
+
+    def part_of(kernel: str) -> str:
+        if "wkv6_step_kernel" in kernel:
+            return "K3s"
+        if any(m in kernel.lower() for m in MATMUL_MARKS):
+            return "matrix products"
+        return "rest"
+
+    profiled = profile_device(run, part_of)[0]
+    return {"mean": sum(times) / len(times), "min": min(times),
+            "max": max(times), "timed_step": step, "k3s": k3s, "matmul": mm,
+            "rest": step - k3s - mm, "profiled": profiled}
+
+
+def phase_rwkv_serve(cfg, serve_cfg, device) -> int:
+    """-> K3s launches of the served run."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wkv6_chunk import wkv6_cuda, wkv6_state_cuda
+    from repro_torch.launch.runtime import make_forward_fn
+    from repro_torch.models import decoder as dec
+    from repro_torch.serve import ServingSession, poisson_trace
+    t0 = time.perf_counter()
+    model = dec.init_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads x {cfg.d_model // cfg.num_heads}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {n_params / 1e9:.3f} B f32 params "
+          f"initialised on the card in {time.perf_counter() - t0:.1f} s")
+
+    # (a) teacher forcing against make_forward_fn's logits
+    g = torch.Generator(device=device)
+    g.manual_seed(6)
+    b, t = 2, 64
+    tokens = torch.randint(0, cfg.vocab, (b, t), generator=g, device=device)
+    forward = make_forward_fn(model, last_only=False)
+    seen = []                                  # each block's input and output
+    hooks = [blk.register_forward_hook(
+        lambda _, args, out: seen.append((args[0], out)))
+        for blk in model.blocks]
+    try:
+        expect = forward({"tokens": tokens})
+    finally:
+        for h in hooks:
+            h.remove()
+    scale = expect.abs().max().item()
+
+    def share(logits):
+        return (logits - expect).abs().max().item() / scale
+
+    def head(x):
+        w_out = model.head if model.head is not None else model.embed.T
+        return model.final_norm(x) @ w_out
+
+    # every layer decodes its own forward input one token a step from a
+    # zero state (K3s against K3 with each layer's real input); the last
+    # layer's decoded output goes through the head
+    states = dec.init_decode_state(cfg, b, t, device=device)["rwkv"]
+    layer_share = []
+    for blk, st, (inp, out) in zip(model.blocks, states, seen):
+        ys = []
+        for i in range(t):
+            y, st = blk.decode(inp[:, i:i + 1], st)
+            ys.append(y)
+        y = torch.cat(ys, 1)
+        layer_share.append((y - out).abs().max().item()
+                           / out.abs().max().item())
+    tf_share = share(head(y))
+    # free running: decode_step over the whole model, and the forward with
+    # its first block's input perturbed by 1e-7 of its largest magnitude
+    state = dec.init_decode_state(cfg, b, t, device=device)
+    outs = []
+    for i in range(t):
+        logits, state = dec.decode_step(model, state,
+                                        {"tokens": tokens[:, i:i + 1]})
+        outs.append(logits[:, 0])
+    got = torch.stack(outs, 1)
+    require(got.shape == expect.shape and bool(torch.isfinite(got).all()),
+            f"decode logits {tuple(got.shape)} are not finite [B, T, V]")
+    x0 = seen[0][0]
+    noise = torch.randn(x0.shape, generator=g, device=device) \
+        * 1e-7 * x0.abs().max()
+    hook = model.blocks[0].register_forward_pre_hook(
+        lambda _, args: (args[0] + noise,))
+    try:
+        perturbed = forward({"tokens": tokens})
+    finally:
+        hook.remove()
+    worst = max(range(len(layer_share)), key=layer_share.__getitem__)
+    print(f"  (a) teacher forcing, {b} x {t} tokens one a step, each layer "
+          f"from its forward input: largest share of a layer's output "
+          f"magnitude {layer_share[worst]:.2e} (layer {worst}); logits from "
+          f"the last layer's decode {tf_share:.2e} of the largest logit "
+          f"magnitude {scale:.3f} (tolerance {TEACHER_TOL:.0e} each)")
+    print(f"  free-running decode_step over all {cfg.num_layers} layers: "
+          f"{share(got):.2e} of it; the forward with its input perturbed by "
+          f"1e-7: {share(perturbed):.2e} (these random weights amplify f32 "
+          f"rounding across the layers; not a check)")
+    require(max(layer_share) <= TEACHER_TOL and tf_share <= TEACHER_TOL,
+            f"decode and forward differ: layer {worst} by "
+            f"{layer_share[worst]:.2e}, logits by {tf_share:.2e} of the "
+            f"largest magnitude")
+    del expect, got, outs, state, seen, perturbed
+
+    # (b, c) serving, the kernels counted
+    requests = poisson_trace(4, rate=0.5, vocab=cfg.vocab, prompt_len=32,
+                             gen_len=(32, 32), seed=1)
+    sess = ServingSession(cfg, serve_cfg, device=device, model=model)
+    plain_calls = [0]
+    plain = ref.wkv6_chunk_ref
+
+    def counted(*args, **kwargs):
+        plain_calls[0] += 1
+        return plain(*args, **kwargs)
+
+    ref.wkv6_chunk_ref = counted
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        wkv6_cuda.launches = 0                  # just before the main path
+        wkv6_state_cuda.launches = 0
+        rep = sess.run(requests)
+        launches = wkv6_state_cuda.launches     # just after it
+        k3_launches = wkv6_cuda.launches
+    finally:
+        ref.wkv6_chunk_ref = plain
+    peak = torch.cuda.max_memory_allocated()
+    for line in rep.summary().splitlines():
+        print("  " + line)
+    expect_n = (rep.decode_steps + 1) * cfg.num_layers   # + the warm-up step
+    print(f"  (c) {rep.decode_steps} decode steps + 1 warm-up: K3s launches "
+          f"{launches} (expected {expect_n}), K3 launches {k3_launches}, "
+          f"plain recurrence calls {plain_calls[0]}")
+    require(len(rep.records) == len(requests) and rep.rejected == 0,
+            f"served {len(rep.records)} of {len(requests)} requests")
+    require(all(r.n_generated == q.max_new
+                for r, q in zip(rep.records, requests)),
+            "a request finished short of its generation budget")
+    require(rep.mean_balance is None and rep.overflow == 0.0,
+            f"balance {rep.mean_balance}, overflow {rep.overflow}")
+    require(launches == expect_n,
+            f"K3s launched {launches} times, expected {expect_n}")
+    require(k3_launches == 0 and plain_calls[0] == 0,
+            f"K3 ({k3_launches}) or the plain recurrence ({plain_calls[0]}) "
+            f"ran on the decode path")
+
+    # (d) timing and split
+    sp = rwkv_step_split(model, cfg, serve_cfg.max_batch, device)
+    b = serve_cfg.max_batch
+    print(f"  (d) decode step at {b} slots: {sp['mean']:.2f} ms (mean of 10; "
+          f"{sp['min']:.2f}-{sp['max']:.2f} ms), {b / sp['mean'] * 1e3:.1f} "
+          f"tokens/s with every slot decoding; served run "
+          f"{rep.gen_tokens / rep.wall_s:.1f} generated tokens/s over "
+          f"{rep.wall_s:.2f} s; peak memory {peak / 2**30:.2f} GiB")
+    print(f"  one more step with the split timers: {sp['timed_step']:.2f} ms "
+          f"= K3s {sp['k3s']:.2f} ms ({cfg.num_layers} calls) + matrix "
+          f"products {sp['matmul']:.2f} ms + rest {sp['rest']:.2f} ms")
+    pr = sp["profiled"]
+    print(f"  one more step under the profiler: window "
+          f"{pr['window_ms']:.3f} ms, device time {pr['device_ms']:.3f} ms in "
+          f"{pr['kernel_launches']} kernels (" + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in pr["parts_ms"].items())
+          + f"), idle share {pr['idle_share']:.2%}")
+    del sess, model   # frees the 29 GB model before the next phase
+    return launches
+
+
+# ------------------------------- phase 15: rwkv6-7b serving, card vs CPU
+
+
+def phase_rwkv_parity(cfg, device) -> None:
+    from repro_torch.engine import ServeConfig
+    from repro_torch.kernels.wkv6_chunk import wkv6_state_cuda
+    from repro_torch.models import decoder as dec
+    from repro_torch.serve import ServingSession, replay_trace
+    cpu_model = dec.init_params(cfg, seed=0, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    toks = torch.tensor([[5], [77], [301]])
+    out = {}
+    for dev, model in (("cpu", cpu_model), (device, gpu_model)):
+        state = dec.init_decode_state(cfg, 3, 24, device=dev)
+        for _ in range(2):   # the second step starts from a carried state
+            logits, state = dec.decode_step(model, state,
+                                            {"tokens": toks.to(dev)})
+        out[str(dev)] = logits.cpu(), [a.cpu() for st in state["rwkv"]
+                                       for a in st]
+    (lc, sc), (lg, sg) = out["cpu"], out[str(device)]
+    require(lg.shape == (3, 1, cfg.vocab), "card logits are not [3, 1, V]")
+    diff = check_close("card vs CPU logits", lg, lc, 1e-4)
+    # a state entry may come out of cancellation (k_i small), so each state
+    # is held to its largest magnitude, as phase 14 (a) holds a layer
+    sdiff = max((a - b).abs().max().item() / b.abs().max().item()
+                for a, b in zip(sg, sc))
+    print(f"  two decode steps: card vs CPU logits max abs diff {diff:.3e} "
+          f"(rtol = atol = 1e-4), states {sdiff:.2e} of their largest "
+          f"magnitude (tolerance 1e-4)")
+    require(sdiff <= 1e-4, f"card and CPU states differ by {sdiff:.2e} of "
+                           f"their largest magnitude")
+
+    sc_cfg = ServeConfig(max_batch=3, max_seq=24)
+    before = wkv6_state_cuda.launches
+    reps = {}
+    for name, dev, model in (("card", device, gpu_model),
+                             ("cpu", "cpu", cpu_model)):
+        reqs = replay_trace(GOLDEN_ARRIVALS, vocab=cfg.vocab, seed=11)
+        reps[name] = ServingSession(cfg, sc_cfg, device=dev,
+                                    model=model).run(reqs)
+    require(wkv6_state_cuda.launches > before,
+            "the card run did not go through K3s")
+    tok_gpu = [r.tokens for r in reps["card"].records]
+    tok_cpu = [r.tokens for r in reps["cpu"].records]
+    print(f"  {cfg.name}: {len(tok_gpu)} requests, "
+          f"{sum(map(len, tok_gpu))} tokens on the card, identical to the "
+          f"CPU: {tok_gpu == tok_cpu}")
+    require(tok_gpu == tok_cpu, f"card tokens {tok_gpu} != CPU {tok_cpu}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card",
@@ -956,6 +1266,7 @@ def main() -> int:
     print("[7] K3 against its plain version")
     k3 = phase_k3((BATCH * rwkv.num_heads, SEQ, rwkv.d_model // rwkv.num_heads),
                   device)
+    k3s = phase_k3s(device)
     torch.cuda.empty_cache()
 
     print("[8] rwkv6-7b forward, full width and depth")
@@ -981,10 +1292,19 @@ def main() -> int:
 
     print("[13] one train step, card vs CPU")
     phase_train_parity(device)
+    torch.cuda.empty_cache()
+
+    print("[14] serve rwkv6-7b, full width and depth")
+    k3s["launches"] = phase_rwkv_serve(rwkv, ServeConfig(max_batch=4,
+                                                         max_seq=64), device)
+    torch.cuda.empty_cache()
+
+    print("[15] card vs CPU through the RWKV-6 serving path")
+    phase_rwkv_parity(rwkv.smoke(), device)
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     print(card)
-    print(json.dumps({"kernels": [record, k2, k3, k4, k1b]}))
+    print(json.dumps({"kernels": [record, k2, k3, k4, k1b, k3s]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

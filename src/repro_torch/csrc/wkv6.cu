@@ -1,19 +1,36 @@
-// K3 on Hopper: the RWKV-6 (Finch) recurrence over [BH, T, D].
+// K3 and K3s on Hopper: the RWKV-6 (Finch) recurrence over [BH, T, D].
 //
-// Replaces the Pallas TPU kernel `wkv6_pallas` / `_wkv6_kernel`
-// (src/repro/kernels/wkv6_chunk.py).  For every (batch·head) row, from a zero
-// f32 state S (D × D):
+// K3 replaces the Pallas TPU kernel `wkv6_pallas` / `_wkv6_kernel`
+// (src/repro/kernels/wkv6_chunk.py), which starts every row from a zero
+// state.  K3s is the same kernel with state in and state out: it replaces
+// the reference's decode path `_wkv_with_state`
+// (src/repro/models/layers/rwkv6.py), a vmap of the sequential oracle, which
+// has no Pallas kernel.  For every (batch·head) row, from the f32 state
+// S_0 = s0 (D × D; zero when s0 is null):
 //
 //     o_t = q_t (S_{t-1} + u ⊙ k_t v_tᵀ)      (u scales the rows of k_t v_tᵀ)
 //     S_t = diag(w_t) S_{t-1} + k_t v_tᵀ,      w_t = exp(lw_t)
 //
-// Inputs are f32 or bf16 (widened to f32 as they leave shared memory); the
-// state and every sum are f32; the output has q's type.  Any T, any D ≤ 128.
+// and, when s_out is not null, S_T written to s_out (never in place: the
+// caller's state stays as it was).  S[i][j] has i the k/q channel (the one w
+// scales) and j the v channel, rows contiguous: the layout of the
+// reference's RWKVState.wkv reshaped to [B·H, D, D].  Inputs are f32 or bf16
+// (widened to f32 as they leave shared memory); the state and every sum are
+// f32; the output has q's type.  Any T ≥ 1, any D ≤ 128.
+//
+// Two kernels, chosen by T alone: below kShortT = 16 steps (the decode
+// step's T = 1 among them) `wkv6_step_kernel`, step by step; from 16 steps
+// on `wkv6_kernel`, sub-chunks on the tensor cores (described below).  A
+// sub-chunk kernel would spend its 12 warps and two-stage ring on a single
+// step.
 //
 // What bounds it: the function reads q, k, v, lw and writes o once, 5·BH·T·D
-// elements, against about 5·D² operations per step and row; at D = 64 in f32
-// that is 16 operations per byte, below the card's f32 ridge, so the bound is
-// bytes (0.20 ms at rwkv6-7b's forward geometry, BH 256, T 2048).  A
+// elements, plus the state in and out (2·BH·D² f32 with a state), against
+// about 5·D² operations per step and row; at D = 64 in f32 that is 16
+// operations per byte, below the card's f32 ridge, so the bound is bytes
+// (0.20 ms at rwkv6-7b's forward geometry, BH 256, T 2048; at its decode
+// step, BH 256, T 1 with a state, 8.8 MB and 2.6 µs, most of it the state,
+// where a launch's own latency is larger still).  A
 // step-by-step form is bound instead by the latency of T dependent steps a
 // row with only BH rows in flight.  This kernel takes T/16 dependent steps a
 // row and is bound by the SM's throughput: its tensor work (3xTF32 on
@@ -54,7 +71,11 @@
 //     to nearest, which pulls a long-lived accumulator toward zero.  So S is
 //     never an mma accumulator across sub-chunks: each sub-chunk's update
 //     k̂ᵀv is accumulated from zero and added to the decayed state with one
-//     fmaf, and o's products go to two accumulators in turn.  The state's
+//     fmaf, and o's products go to two accumulators in turn.  A state
+//     carried in from s0 is loaded into that fragment before the first
+//     sub-chunk, and the last fragment is stored to s_out, both undoing the
+//     permutation below (a state lives across hundreds of decode steps, so
+//     the same rule holds for it).  The state's
 //     fragment is read directly as the A operand of the next cross term:
 //     within each 8-wide k-block the k index is permuted (position tig ↔
 //     i = 2·tig, tig + 4 ↔ 2·tig + 1), and q̂ is read with the same
@@ -248,7 +269,7 @@ template <typename T, int DP>
 __global__ void __launch_bounds__(Roles<DP>::kThreads, DP <= 64 ? 2 : 1)
 wkv6_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const T* __restrict__ lw, const T* __restrict__ u, T* __restrict__ o,
-            int t_len, int d) {
+            const float* __restrict__ s0, float* __restrict__ s_out, int t_len, int d) {
   using G = Geometry<T, DP>;
   using R = Roles<DP>;
   constexpr int NCT = R::kConsumers, NT = R::kThreads;
@@ -443,8 +464,21 @@ wkv6_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   const int gid = lane >> 2, tig = lane & 3;
   const int jw = 16 * warp;   // first value column of the warp
   float S[NI][4];   // Sᵀ: rows j = jw + gid (c0, c1), jw + gid + 8 (c2, c3); cols i = 8·it + 2·tig (+1)
+  // S[it][h] holds S[i][j] (s0's layout) at i = 8·it + 2·tig + (h & 1),
+  // j = jw + gid + 8·(h >> 1); channels past D stay zero
+  auto state_at = [&](int it, int h, int& i, int& j) {
+    i = 8 * it + 2 * tig + (h & 1);
+    j = jw + gid + 8 * (h >> 1);
+    return i < d && j < d;
+  };
+  const size_t sbase = (size_t)row * d * d;
 #pragma unroll
-  for (int it = 0; it < NI; ++it) S[it][0] = S[it][1] = S[it][2] = S[it][3] = 0.0f;
+  for (int it = 0; it < NI; ++it)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      int i, j;
+      S[it][h] = s0 != nullptr && state_at(it, h, i, j) ? s0[sbase + (size_t)i * d + j] : 0.0f;
+    }
 
   for (int ci = 0; ci < nsub; ++ci) {
     const int b = ci & 1;
@@ -522,27 +556,133 @@ wkv6_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
         if (t < n && j < d) o[off + (size_t)t * d + j] = from_f<T>(acc[nt][h]);
       }
   }
+
+  // 8. the state after the last step, in s0's layout
+  if (s_out != nullptr) {
+#pragma unroll
+    for (int it = 0; it < NI; ++it)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        int i, j;
+        if (state_at(it, h, i, j)) s_out[sbase + (size_t)i * d + j] = S[it][h];
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The step-by-step kernel for short T (below kShortT; the decode step's T = 1).
+// One block per (b·h) row, kSlices × DP threads: thread (slice sl, column j)
+// keeps S[i][j] for the DP / kSlices rows i of its slice in registers, so the
+// state is read once and written once.  The inputs of up to kStepTile steps
+// are staged in shared memory (w = exp(lw) formed there, accurately); each
+// step, every thread adds q_i (S_ij + u_i k_i v_j) over its rows in order and
+// leaves the partial sum in shared memory, then updates its rows, S_ij ←
+// fmaf(w_i, S_ij, k_i v_j).  The update does not wait for o, so a tile's
+// partial sums are reduced after its last step, slice 0 + 1 + 2 + 3 in that
+// order.  Every sum has a fixed order (ref.wkv6_step_ref repeats it): the
+// results repeat bit for bit.
+constexpr int kShortT = 16;   // T below this takes the step-by-step kernel
+constexpr int kSlices = 4;    // slices of the state's rows i a column j is split into
+constexpr int kStepTile = 8;  // steps staged at a time
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kSlices * DP)
+wkv6_step_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const T* __restrict__ lw, const T* __restrict__ u, T* __restrict__ o,
+                 const float* __restrict__ s0, float* __restrict__ s_out, int t_len, int d) {
+  constexpr int NR = DP / kSlices;   // rows i a thread keeps
+  constexpr int NT = kSlices * DP;
+  __shared__ float sq[kStepTile][DP], sk[kStepTile][DP], sv[kStepTile][DP], sw[kStepTile][DP];
+  __shared__ float su[DP];
+  __shared__ float part[kStepTile][kSlices][DP];
+
+  const int tid = threadIdx.x, j = tid % DP, i0 = (tid / DP) * NR;
+  const int row = blockIdx.x;
+  const size_t base = (size_t)row * t_len * d;
+  const size_t sbase = (size_t)row * d * d;
+
+  float S[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const int i = i0 + r;
+    S[r] = s0 != nullptr && i < d && j < d ? s0[sbase + (size_t)i * d + j] : 0.0f;
+  }
+  for (int c = tid; c < DP; c += NT) su[c] = c < d ? to_f(u[(size_t)row * d + c]) : 0.0f;
+
+  for (int t0 = 0; t0 < t_len; t0 += kStepTile) {
+    const int n = min(kStepTile, t_len - t0);
+    __syncthreads();   // the previous tile's inputs and partial sums are read
+    for (int e = tid; e < kStepTile * DP; e += NT) {
+      const int t = e / DP, c = e % DP;
+      const bool in = t < n && c < d;   // masked: q = k = v = 0, w = 1
+      const size_t off = base + (size_t)(t0 + t) * d + c;
+      sq[t][c] = in ? to_f(q[off]) : 0.0f;
+      sk[t][c] = in ? to_f(k[off]) : 0.0f;
+      sv[t][c] = in ? to_f(v[off]) : 0.0f;
+      sw[t][c] = in ? expf(to_f(lw[off])) : 1.0f;
+    }
+    __syncthreads();
+    for (int t = 0; t < n; ++t) {
+      const float vj = sv[t][j];
+      float p = 0.0f;
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        const int i = i0 + r;
+        const float kv = sk[t][i] * vj;
+        p = fmaf(sq[t][i], fmaf(su[i], kv, S[r]), p);
+        S[r] = fmaf(sw[t][i], S[r], kv);
+      }
+      part[t][tid / DP][j] = p;
+    }
+    __syncthreads();
+    for (int e = tid; e < n * DP; e += NT) {
+      const int t = e / DP, c = e % DP;
+      float acc = part[t][0][c];
+#pragma unroll
+      for (int sl = 1; sl < kSlices; ++sl) acc += part[t][sl][c];
+      if (c < d) o[base + (size_t)(t0 + t) * d + c] = from_f<T>(acc);
+    }
+  }
+
+  if (s_out != nullptr) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const int i = i0 + r;
+      if (i < d && j < d) s_out[sbase + (size_t)i * d + j] = S[r];
+    }
+  }
 }
 
 template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, const void* lw, const void* u,
-           void* o, int bh, int t, int d, cudaStream_t stream) {
+           void* o, const float* s0, float* s_out, int bh, int t, int d,
+           cudaStream_t stream) {
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const T* lp = static_cast<const T*>(lw);
+  const T* up = static_cast<const T*>(u);
+  T* op = static_cast<T*>(o);
+  if (t < kShortT) {
+    wkv6_step_kernel<T, DP><<<bh, kSlices * DP, 0, stream>>>(qp, kp, vp, lp, up, op, s0,
+                                                            s_out, t, d);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = Geometry<T, DP>::kSmem;
   auto kern = wkv6_kernel<T, DP>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<bh, Roles<DP>::kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(lw), static_cast<const T*>(u), static_cast<T*>(o), t, d);
+  kern<<<bh, Roles<DP>::kThreads, smem, stream>>>(qp, kp, vp, lp, up, op, s0, s_out, t, d);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_width(const void* q, const void* k, const void* v, const void* lw,
-                 const void* u, void* o, int bh, int t, int d, cudaStream_t stream) {
-  if (d <= 64) return launch<T, 64>(q, k, v, lw, u, o, bh, t, d, stream);
-  return launch<T, 128>(q, k, v, lw, u, o, bh, t, d, stream);
+                 const void* u, void* o, const float* s0, float* s_out, int bh, int t,
+                 int d, cudaStream_t stream) {
+  if (d <= 64) return launch<T, 64>(q, k, v, lw, u, o, s0, s_out, bh, t, d, stream);
+  return launch<T, 128>(q, k, v, lw, u, o, s0, s_out, bh, t, d, stream);
 }
 
 }  // namespace
@@ -550,15 +690,22 @@ int launch_width(const void* q, const void* k, const void* v, const void* lw,
 extern "C" {
 
 // q, k, v, lw, o: [bh, t, d]; u: [bh, d]; contiguous, any alignment of the
-// element type.  dtype: 0 = float32, 1 = bfloat16.  Launches on `stream`
-// without synchronising; returns the error of the shared-memory opt-in or of
-// the launch (cudaGetLastError()), 0 on success.
+// element type.  dtype: 0 = float32, 1 = bfloat16.  s0, s_out: [bh, d, d]
+// float32, contiguous, or null: a null s0 starts from a zero state (K3), a
+// null s_out writes no state; s_out must not overlap s0 or the inputs.  The
+// two are last so that a K3 library built before they existed takes the
+// same call and ignores them.  Launches on `stream` without synchronising;
+// returns the error of the shared-memory opt-in or of the launch
+// (cudaGetLastError()), 0 on success.
 int wkv6_forward(const void* q, const void* k, const void* v, const void* lw, const void* u,
-                 void* o, int bh, int t, int d, int dtype, void* stream) {
+                 void* o, int bh, int t, int d, int dtype, void* stream, const void* s0,
+                 void* s_out) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* si = static_cast<const float*>(s0);
+  float* so = static_cast<float*>(s_out);
   if (bh <= 0 || t <= 0 || d <= 0 || d > 128) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return launch_width<float>(q, k, v, lw, u, o, bh, t, d, st);
-  if (dtype == 1) return launch_width<__nv_bfloat16>(q, k, v, lw, u, o, bh, t, d, st);
+  if (dtype == 0) return launch_width<float>(q, k, v, lw, u, o, si, so, bh, t, d, st);
+  if (dtype == 1) return launch_width<__nv_bfloat16>(q, k, v, lw, u, o, si, so, bh, t, d, st);
   return (int)cudaErrorInvalidValue;
 }
 

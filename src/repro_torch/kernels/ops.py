@@ -2,7 +2,9 @@
 
 The tensor's device picks the implementation, never a fallback: a CUDA
 tensor launches the hand-written kernel (which raises if it cannot build or
-launch), a CPU tensor runs the plain PyTorch version in ``ref``.  The
+launch), a CPU tensor runs the plain PyTorch version in ``ref``.  ``wkv6``
+with a state is K3s on a CUDA tensor (the reference's decode path has no
+Pallas kernel).  The
 gradient of ``grouped_ffn_flat`` is K1b on a CUDA tensor and autograd of
 the plain version on a CPU tensor.
 """
@@ -15,7 +17,7 @@ import torch
 from . import ref
 from .grouped_matmul import GroupedFFNFlat, grouped_ffn_cuda
 from .sched import schedule_cuda
-from .wkv6_chunk import wkv6_cuda
+from .wkv6_chunk import wkv6_cuda, wkv6_state_cuda
 
 __all__ = ["grouped_ffn", "grouped_ffn_flat", "schedule", "tile_group_ids",
            "wkv6"]
@@ -91,14 +93,24 @@ def wkv6(
     lw: torch.Tensor,    # [BH, T, D] log-decay (<= 0)
     u: torch.Tensor,     # [BH, D]
     chunk: int = 128,
-) -> torch.Tensor:
-    """RWKV-6 recurrence over [BH, T, D] from a zero state; output in q's
-    type.  ``chunk`` is the reference wrapper's time tile; K3 takes any T,
-    so it pads nothing and the argument changes no result."""
+    state: Optional[torch.Tensor] = None,   # [BH, D, D] float32 S_0
+):
+    """RWKV-6 recurrence over [BH, T, D]; output in q's type.  ``chunk`` is
+    the reference wrapper's time tile; K3 takes any T, so it pads nothing
+    and the argument changes no result.
+
+    Without ``state`` it starts from a zero state and returns o (K3 on a
+    CUDA tensor).  With ``state`` (the decode path, the reference's
+    ``_wkv_with_state``) it starts from ``state`` and returns (o, the final
+    state [BH, D, D] float32), K3s on a CUDA tensor; ``state`` is not
+    modified."""
     del chunk
     if q.device.type == "cpu":
-        return ref.wkv6_chunk_ref(q, k, v, torch.exp(lw.float()), u)[0]
-    return wkv6_cuda(q, k, v, lw, u)
+        o, s = ref.wkv6_chunk_ref(q, k, v, torch.exp(lw.float()), u, state)
+        return o if state is None else (o, s)
+    if state is None:
+        return wkv6_cuda(q, k, v, lw, u)
+    return wkv6_state_cuda(q, k, v, lw, u, state)
 
 
 def schedule(

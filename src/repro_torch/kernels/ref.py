@@ -24,7 +24,8 @@ from ..core.solver import device_loads, solve_replica_loads
 __all__ = ["schedule_ref", "grouped_ffn_ref", "grouped_ffn_flat_ref",
            "grouped_ffn_flat_bwd_ref", "grouped_ffn_flat_bwd_3xtf32_ref",
            "grouped_ffn_flat_blocked_ref",
-           "wkv6_chunk_ref", "wkv6_subchunk_ref", "wkv6_inputs"]
+           "wkv6_chunk_ref", "wkv6_subchunk_ref", "wkv6_step_ref",
+           "wkv6_inputs"]
 
 
 def _act(h_gate: torch.Tensor, h_up: torch.Tensor, activation: str):
@@ -382,10 +383,12 @@ def wkv6_subchunk_ref(
     v: torch.Tensor,     # [BH, T, D]
     lw: torch.Tensor,    # [BH, T, D] log-decay (<= 0)
     u: torch.Tensor,     # [BH, D]
-) -> torch.Tensor:
-    """K3's own arithmetic in plain PyTorch: the recurrence of
-    ``wkv6_chunk_ref`` from a zero state, walked in sub-chunks of ``SUB``
-    steps with local cumulative log-decays c (every exponent <= 0)::
+    state: Optional[torch.Tensor] = None,   # [BH, D, D] S_0; zeros if None
+):
+    """K3's own arithmetic in plain PyTorch (from 16 steps on; K3s's with a
+    ``state``): the recurrence of ``wkv6_chunk_ref``, walked in sub-chunks
+    of ``SUB`` steps with local cumulative log-decays c (every exponent
+    <= 0)::
 
         o  = q̂ S + score v,      q̂_t = q_t ⊙ exp(c_{t-1})
         S <- diag(exp(c_τ)) S + k̂ᵀ v,   k̂_s = k_s ⊙ exp(c_τ - c_s)
@@ -398,14 +401,16 @@ def wkv6_subchunk_ref(
     products run in another order, PyTorch rounds them to nearest where the
     tensor cores truncate, and ``torch.exp2`` is rounded more tightly than
     the kernel's ``ex2.approx`` (2 ulp).  Steps past T are padded with zeros
-    (lw = 0).  Output in q's type."""
+    (lw = 0).  Returns (o [BH, T, D] in q's type, final state [BH, D, D]
+    float32)."""
     bh, t, d = q.shape
     pad = (-t) % SUB
     qf, kf, vf, lf = (torch.nn.functional.pad(a.float(), (0, 0, 0, pad))
                       for a in (q, k, v, lw))
     l2 = lf * LOG2E                                      # rounded to float32
     uf = u.float()
-    s_state = torch.zeros((bh, d, d), dtype=torch.float32, device=q.device)
+    s_state = (torch.zeros((bh, d, d), dtype=torch.float32, device=q.device)
+               if state is None else state.float())
     outs = []
     for t0 in range(0, t + pad, SUB):
         qs, ks, vs = (a[:, t0:t0 + SUB] for a in (qf, kf, vf))
@@ -423,7 +428,52 @@ def wkv6_subchunk_ref(
         s_state = (torch.exp2(c_tau).transpose(1, 2) * s_state
                    + _mm_3xtf32(k_hat.transpose(1, 2), vs))
         outs.append(o)
-    return torch.cat(outs, dim=1)[:, :t].to(q.dtype)
+    return torch.cat(outs, dim=1)[:, :t].to(q.dtype), s_state
+
+
+STEP_SLICES = 4   # K3's step-by-step kernel splits the rows i into 4 slices
+
+
+def wkv6_step_ref(
+    q: torch.Tensor,     # [BH, T, D]
+    k: torch.Tensor,     # [BH, T, D]
+    v: torch.Tensor,     # [BH, T, D]
+    lw: torch.Tensor,    # [BH, T, D] log-decay (<= 0)
+    u: torch.Tensor,     # [BH, D]
+    state: Optional[torch.Tensor] = None,   # [BH, D, D] S_0; zeros if None
+):
+    """The order of sums of K3's step-by-step kernel (below 16 steps; the
+    decode step's K3s) in plain PyTorch: step by step, w = exp(lw) in
+    float32,
+
+        o_tj = Σ_slices Σ_{i in slice} q_ti (S_ij + u_i (k_ti v_tj)),
+        S_ij <- w_ti S_ij + k_ti v_tj,
+
+    the rows i cut into ``STEP_SLICES`` slices of DP / 4 rows (DP = 64 for
+    D <= 64, else 128), each slice summed in row order and the slices'
+    partial sums added in order.  Where the kernel fuses a multiply and an
+    add (``fmaf``) this rounds twice.  Returns (o [BH, T, D] in q's type,
+    final state [BH, D, D] float32)."""
+    bh, t, d = q.shape
+    rows = (64 if d <= 64 else 128) // STEP_SLICES
+    s = (torch.zeros((bh, d, d), dtype=torch.float32, device=q.device)
+         if state is None else state.float())
+    qf, kf, vf = (a.float() for a in (q, k, v))
+    w = torch.exp(lw.float())
+    uf = u.float()[:, :, None]
+    o = torch.empty((bh, t, d), dtype=torch.float32, device=q.device)
+    for step in range(t):
+        kv = kf[:, step, :, None] * vf[:, step, None, :]          # [BH, i, j]
+        terms = qf[:, step, :, None] * (s + uf * kv)
+        acc = None
+        for i0 in range(0, d, rows):
+            part = terms[:, i0]
+            for i in range(i0 + 1, min(i0 + rows, d)):
+                part = part + terms[:, i]
+            acc = part if acc is None else acc + part
+        o[:, step] = acc
+        s = w[:, step, :, None] * s + kv
+    return o.to(q.dtype), s
 
 
 def wkv6_inputs(g: torch.Generator, bh: int, t: int, d: int, device,

@@ -1,15 +1,21 @@
-"""Build and bind K3, the hand-written CUDA RWKV-6 recurrence
+"""Build and bind K3 and K3s, the hand-written CUDA RWKV-6 recurrence
 (``csrc/wkv6.cu``).
 
 K3 replaces the Pallas TPU kernel ``wkv6_pallas`` of
 ``repro.kernels.wkv6_chunk`` and computes the same function (zero initial
-state, f32 state, output in q's type).  It uses the TPU kernel's sub-chunk
-algebra (16 steps a sub-chunk, local cumulative decays, every exponent
-≤ 0), with the products on the tensor cores in 3xTF32 and the inputs
-staged by asynchronous copies; ``ref.wkv6_subchunk_ref`` repeats that
-arithmetic in plain PyTorch.  It takes any T and any alignment, so nothing
-is padded.  The source is compiled on first use (``build.build_library``)
-and called through ``ctypes`` on PyTorch's current stream.
+state, f32 state, output in q's type).  From ``SHORT_T`` steps on it uses
+the TPU kernel's sub-chunk algebra (16 steps a sub-chunk, local cumulative
+decays, every exponent ≤ 0), with the products on the tensor cores in
+3xTF32 and the inputs staged by asynchronous copies; ``ref.wkv6_subchunk_ref``
+repeats that arithmetic in plain PyTorch.  Below ``SHORT_T`` steps a
+step-by-step kernel runs instead, whose order of sums ``ref.wkv6_step_ref``
+repeats.  K3s (``wkv6_state_cuda``) is the same C entry with a state in and
+the final state out, for the RWKV-6 decode: it replaces the reference's
+``_wkv_with_state`` (``repro.models.layers.rwkv6``), which reaches no Pallas
+kernel.  Each has its own launch count.  Both take any T and any alignment,
+so nothing is padded.  The source is compiled on first use
+(``build.build_library``) and called through ``ctypes`` on PyTorch's current
+stream.
 """
 from __future__ import annotations
 
@@ -19,11 +25,13 @@ import torch
 
 from .build import CSRC, build_library
 
-__all__ = ["bind", "build", "wkv6_cuda", "MAX_HEAD_DIM"]
+__all__ = ["bind", "build", "wkv6_cuda", "wkv6_state_cuda", "MAX_HEAD_DIM",
+           "SHORT_T"]
 
 _SRC = CSRC / "wkv6.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+SHORT_T = 16   # T below this runs the step-by-step kernel (kShortT)
 
 _lib = None  # the loaded library, bound once per process
 
@@ -35,10 +43,11 @@ def build():
 
 
 def bind(path):
-    """Load a built K3 library and declare its C entry ``wkv6_forward``."""
+    """Load a built K3 library and declare its C entry ``wkv6_forward``
+    (the last two pointers, s0 and s_out, may be null)."""
     lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.wkv6_forward.argtypes = [vp] * 6 + [ci] * 4 + [vp]
+    lib.wkv6_forward.argtypes = [vp] * 6 + [ci] * 4 + [vp] * 3
     lib.wkv6_forward.restype = ci
     return lib
 
@@ -48,6 +57,47 @@ def _load():
     if _lib is None:
         _lib = bind(build())
     return _lib
+
+
+def _check(q, k, v, lw, u, state=None) -> None:
+    """Raise on anything the kernel does not take."""
+    tensors = (q, k, v, lw, u) + (() if state is None else (state,))
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError("wkv6_cuda needs every tensor on one CUDA device, "
+                         f"got {[str(t.device) for t in tensors]}")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors[:5]):
+        raise TypeError(f"K3 takes float32 or bfloat16 tensors of one type, "
+                        f"got {[t.dtype for t in tensors[:5]]}")
+    if q.dim() != 3:
+        raise ValueError(f"K3 takes q [BH, T, D], got {tuple(q.shape)}")
+    bh, t, d = q.shape
+    if (any(a.shape != q.shape for a in (k, v, lw))
+            or u.shape != (bh, d)):
+        raise ValueError(
+            f"bad K3 shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)}, lw {tuple(lw.shape)}, u {tuple(u.shape)}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"K3 takes a head dim up to {MAX_HEAD_DIM}, got {d}")
+    if state is not None:
+        if state.dtype != torch.float32:
+            raise TypeError(f"K3s takes a float32 state, got {state.dtype}")
+        if state.shape != (bh, d, d):
+            raise ValueError(f"K3s takes a state [BH, D, D] = {(bh, d, d)}, "
+                             f"got {tuple(state.shape)}")
+    if not all(a.is_contiguous() for a in tensors):
+        raise ValueError("K3 takes contiguous tensors only")
+
+
+def _launch(q, k, v, lw, u, out, state=None, s_out=None) -> None:
+    bh, t, d = q.shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _load().wkv6_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(), u.data_ptr(),
+        out.data_ptr(), bh, t, d, _DTYPES[q.dtype], stream,
+        None if state is None else state.data_ptr(),
+        None if s_out is None else s_out.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"K3 launch failed: CUDA error {rc}")
 
 
 def wkv6_cuda(
@@ -64,36 +114,38 @@ def wkv6_cuda(
     shapes, a non-contiguous tensor, or a shared-memory opt-in or launch
     the CUDA runtime refuses.  A tensor whose address is not 16-byte
     aligned is taken: the kernel stages it with narrower copies."""
-    tensors = (q, k, v, lw, u)
-    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
-        raise ValueError("wkv6_cuda needs every tensor on one CUDA device, "
-                         f"got {[str(t.device) for t in tensors]}")
-    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
-        raise TypeError(f"K3 takes float32 or bfloat16 tensors of one type, "
-                        f"got {[t.dtype for t in tensors]}")
-    if q.dim() != 3:
-        raise ValueError(f"K3 takes q [BH, T, D], got {tuple(q.shape)}")
-    bh, t, d = q.shape
-    if (any(a.shape != q.shape for a in (k, v, lw))
-            or u.shape != (bh, d)):
-        raise ValueError(
-            f"bad K3 shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-            f"v {tuple(v.shape)}, lw {tuple(lw.shape)}, u {tuple(u.shape)}")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"K3 takes a head dim up to {MAX_HEAD_DIM}, got {d}")
-    if not all(a.is_contiguous() for a in tensors):
-        raise ValueError("K3 takes contiguous tensors only")
+    _check(q, k, v, lw, u)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _load().wkv6_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(), u.data_ptr(),
-        out.data_ptr(), bh, t, d, _DTYPES[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"K3 launch failed: CUDA error {rc}")
+    _launch(q, k, v, lw, u, out)
     wkv6_cuda.launches += 1
     return out
 
 
 wkv6_cuda.launches = 0   # kernel launches since the last reset
+
+
+def wkv6_state_cuda(
+    q: torch.Tensor,       # [BH, T, D]
+    k: torch.Tensor,       # [BH, T, D]
+    v: torch.Tensor,       # [BH, T, D]
+    lw: torch.Tensor,      # [BH, T, D] log-decay (<= 0)
+    u: torch.Tensor,       # [BH, D]
+    state: torch.Tensor,   # [BH, D, D] float32 S_0, S[i][j]: i the k channel
+):
+    """Launch K3s: the recurrence from ``state`` -> (o [BH, T, D] in q's
+    type, the final state [BH, D, D] float32, a new tensor: ``state`` is
+    not modified).  Raises as :func:`wkv6_cuda` does, and on a state that
+    is not a contiguous float32 [BH, D, D] tensor on the same device."""
+    _check(q, k, v, lw, u, state)
+    out = torch.empty_like(q)
+    s_out = torch.empty_like(state)
+    if out.numel() == 0:   # no step: the state comes back as it was
+        return out, s_out.copy_(state)
+    _launch(q, k, v, lw, u, out, state, s_out)
+    wkv6_state_cuda.launches += 1
+    return out, s_out
+
+
+wkv6_state_cuda.launches = 0   # kernel launches since the last reset

@@ -1,12 +1,15 @@
 """Serving entry point on one device (twin of ``repro.launch.serve``, co-located
 and single-device): Poisson or replay traffic feeds the slot/KV-budget batch
 manager; one decode step per tick interleaves prefill and decode and re-runs
-the MicroEP scheduler in every MoE layer on the live batch's expert loads.
+the MicroEP scheduler in every MoE layer on the live batch's expert loads
+(an RWKV-6 decoder carries each slot's recurrent state through K3s instead).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
       --requests 4 --prompt-len 8 --gen 8 --max-batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch paper-gpt-32x1.3b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+      --smoke --device cpu
 
 Runs on the CUDA device unless ``--device cpu`` is given; weights are f32,
 random from ``--seed``, drawn on the device.

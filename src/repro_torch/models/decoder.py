@@ -1,6 +1,7 @@
-"""The decoder (twin of ``repro.models.decoder``): the decode step of
-attention + MicroEP MoE decoders, their full-sequence forward and training
-loss, and the full-sequence forward of RWKV-6 decoders.
+"""The decoder (twin of ``repro.models.decoder``): the decode step, the
+full-sequence forward and the training loss of attention + MicroEP MoE
+decoders, and the decode step and full-sequence forward of RWKV-6
+decoders.
 
 The MoE dispatch runs the full MicroEP machinery on the degenerate
 single-device group (G=1, ``local_moe_apply``): top-k gating, counts, the
@@ -9,18 +10,19 @@ the grouped FFN (K1 on a CUDA device) and combine, in every MoE layer of
 every decode step and of every micro-batch of the full-sequence forward;
 its gradient goes through K1b on a CUDA device.  The full-sequence forward
 (serving prefill, evaluation, training) runs every RWKV-6 block's
-recurrence through K3 on a CUDA device.  The reference's stacked
+recurrence through K3 on a CUDA device, and the decode step through K3s
+(K3 with the slot's state carried in and out).  The reference's stacked
 ``layers_scan`` parameters are one module per layer here, and its
 ``lax.scan`` over layers a Python loop.
 
 Supported: ``decode_step``, ``forward`` and ``loss_fn`` on decoders whose
 every layer is a global-attention + MoE block (``pattern == ("attn",)``, no
 sliding window, no M-RoPE, no expert tensor parallelism) — olmoe-1b-7b and
-paper-gpt-32x1.3b; ``forward`` on decoders whose every layer is an RWKV-6
-block (``pattern == ("rwkv",)``) — rwkv6-7b.  Parameters are created with
-``requires_grad=False``: serving builds no graph, and training turns them on
-with ``model.requires_grad_(True)``.  The stateful RWKV-6 decode and RWKV-6
-training are later slices.
+paper-gpt-32x1.3b; ``decode_step`` and ``forward`` on decoders whose every
+layer is an RWKV-6 block (``pattern == ("rwkv",)``, no MoE) — rwkv6-7b.
+Parameters are created with ``requires_grad=False``: serving builds no
+graph, and training turns them on with ``model.requires_grad_(True)``.
+RWKV-6 training (K3's backward) is a later slice.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ from .layers.attention import (AttnConfig, Attention, KVCache, attention,
                                decode_attention, init_attention,
                                init_kv_cache)
 from .layers.norms import Norm
-from .layers.rwkv6 import (ChannelMix, TimeMix, init_rwkv6,
+from .layers.rwkv6 import (ChannelMix, RWKVState, TimeMix, init_rwkv6,
                            init_rwkv6_channel)
 
 __all__ = ["require_device", "check_servable", "check_forward",
@@ -68,6 +70,10 @@ def _is_rwkv(cfg: ArchConfig) -> bool:
     return tuple(cfg.pattern) == ("rwkv",)
 
 
+def _is_rwkv_decoder(cfg: ArchConfig) -> bool:
+    return _is_rwkv(cfg) and not cfg.moe and not cfg.frontend_stub
+
+
 def _is_moe_attention(cfg: ArchConfig) -> bool:
     return bool(cfg.moe and tuple(cfg.pattern) == ("attn",)
                 and not cfg.window and not cfg.mrope_sections
@@ -76,17 +82,17 @@ def _is_moe_attention(cfg: ArchConfig) -> bool:
 
 def check_servable(cfg: ArchConfig) -> None:
     """Raise unless the decode step (serving) runs ``cfg``."""
-    if not _is_moe_attention(cfg):
+    if not _is_rwkv_decoder(cfg) and not _is_moe_attention(cfg):
         raise ValueError(
-            f"{cfg.name}: the port serves global-attention MoE decoders "
-            f"(pattern ('attn',), no window, no M-RoPE, etp 1); the "
-            f"stateful RWKV-6 decode and other blocks are not ported yet")
+            f"{cfg.name}: the port serves RWKV-6 decoders (pattern "
+            f"('rwkv',), no MoE) and global-attention MoE decoders (pattern "
+            f"('attn',), no window, no M-RoPE, etp 1); other blocks are not "
+            f"ported yet")
 
 
 def check_forward(cfg: ArchConfig) -> None:
     """Raise unless the full-sequence forward runs ``cfg``."""
-    rwkv = _is_rwkv(cfg) and not cfg.moe and not cfg.frontend_stub
-    if not rwkv and not _is_moe_attention(cfg):
+    if not _is_rwkv_decoder(cfg) and not _is_moe_attention(cfg):
         raise ValueError(
             f"{cfg.name}: the port's full-sequence forward runs RWKV-6 "
             f"decoders (pattern ('rwkv',), no MoE) and global-attention MoE "
@@ -102,10 +108,6 @@ def check_trainable(cfg: ArchConfig) -> None:
             f"(pattern ('attn',), no window, no M-RoPE, etp 1); training "
             f"RWKV-6 needs K3's backward and other blocks are not ported "
             f"yet")
-
-
-def _check_supported(cfg: ArchConfig) -> None:
-    (check_forward if _is_rwkv(cfg) else check_servable)(cfg)
 
 
 def _attn_cfg(cfg: ArchConfig) -> AttnConfig:
@@ -174,6 +176,15 @@ class RWKVBlock(nn.Module):
         x = x + self.time(self.ln1(x))
         return x + self.chan(self.ln2(x))
 
+    def decode(self, x: torch.Tensor, state: RWKVState):
+        """x [B, T, dm] from ``state`` -> (x, the new RWKVState): ln1 ->
+        time mix (K3s on a CUDA device) -> residual -> ln2 -> channel mix ->
+        residual, as the reference's ``_block_decode``."""
+        h, wkv, shift_t = self.time(self.ln1(x), state)
+        x = x + h
+        h, shift_c = self.chan(self.ln2(x), state.shift_c)
+        return x + h, RWKVState(wkv, shift_t, shift_c)
+
 
 class Decoder(nn.Module):
     """The model, in f32 (as the reference's single-device session):
@@ -184,7 +195,7 @@ class Decoder(nn.Module):
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
         super().__init__()
-        _check_supported(cfg)
+        check_forward(cfg)          # the decoders the port builds
         device = require_device(device)
         self.cfg = cfg
         self.embed = nn.Parameter(
@@ -556,13 +567,27 @@ def init_solver_states(cfg: ArchConfig, num_replicas: int,
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
                       device="cuda") -> dict:
-    """Per-layer KV caches with per-slot positions: {"pos": int64[B],
-    "kv": [KVCache per layer]} (continuous batching: every slot decodes at
-    its own position)."""
+    """Per-layer decode caches with per-slot positions (continuous batching:
+    every slot decodes at its own position): {"pos": int64[B]} and, for an
+    attention decoder, "kv": [KVCache per layer]; for an RWKV-6 decoder,
+    "rwkv": [RWKVState per layer] (wkv float32 zeros [B, H, D, D], shifts
+    zeros [B, dm] in the model's type, f32; O(1) in ``max_seq``)."""
+    state = {"pos": torch.zeros(batch, dtype=torch.int64, device=device)}
+    if _is_rwkv(cfg):
+        hd = cfg.d_model // cfg.num_heads
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+
+        state["rwkv"] = [RWKVState(wkv=zeros(batch, cfg.num_heads, hd, hd),
+                                   shift_t=zeros(batch, cfg.d_model),
+                                   shift_c=zeros(batch, cfg.d_model))
+                         for _ in range(cfg.num_layers)]
+        return state
     acfg = _attn_cfg(cfg)
-    return {"pos": torch.zeros(batch, dtype=torch.int64, device=device),
-            "kv": [init_kv_cache(acfg, batch, max_seq, device=device)
-                   for _ in range(cfg.num_layers)]}
+    state["kv"] = [init_kv_cache(acfg, batch, max_seq, device=device)
+                   for _ in range(cfg.num_layers)]
+    return state
 
 
 @torch.no_grad()
@@ -575,34 +600,44 @@ def decode_step(model: Decoder, state: dict, batch: dict,
     ``active`` keeps inactive serving slots (pad tokens) out of MoE routing,
     capacity and the load metrics.  When ``state`` carries "solver" (from
     :func:`init_solver_states`) every MoE layer re-solves the LP on the live
-    batch's expert loads, warm-started from the previous step.  The input
-    state is not modified."""
+    batch's expert loads, warm-started from the previous step.  An RWKV-6
+    block decodes from the slot's state (``RWKVBlock.decode``: K3s on a
+    CUDA device); its metrics are zeros.  The input state is not
+    modified."""
     cfg = model.cfg
     check_servable(cfg)
-    acfg = _attn_cfg(cfg)
     x = model.embed[batch["tokens"]]                     # [B, 1, dm]
-    b = x.shape[0]
     pos = state["pos"]
-    active = batch.get("active")
-    solver = state.get("solver")
     acc = _zero_moe(cfg, x.device)
-    new_kv, new_solver = [], []
-    for i, blk in enumerate(model.blocks):
-        h = blk.ln1(x)
-        h, cache = decode_attention(blk.attn, acfg, h,
-                                    state["kv"][i]._replace(length=pos))
-        x = x + h
-        h = blk.ln2(x)
-        st = None if solver is None else solver[i]
-        h2d, m, st = local_moe_apply(blk.moe, h.reshape(b, -1), cfg, st,
-                                     valid=active)
-        x = x + h2d.reshape(b, 1, -1)
-        acc = _accum(acc, m)
-        new_kv.append(cache)
-        new_solver.append(st)
-    new_state = {"pos": pos + 1, "kv": new_kv}
-    if "solver" in state:
-        new_state["solver"] = new_solver if solver is not None else None
+    new_state = {"pos": pos + 1}
+    if _is_rwkv(cfg):
+        new_rwkv = []
+        for blk, st in zip(model.blocks, state["rwkv"]):
+            x, st = blk.decode(x, st)
+            new_rwkv.append(st)
+        new_state["rwkv"] = new_rwkv
+    else:
+        acfg = _attn_cfg(cfg)
+        b = x.shape[0]
+        active = batch.get("active")
+        solver = state.get("solver")
+        new_kv, new_solver = [], []
+        for i, blk in enumerate(model.blocks):
+            h = blk.ln1(x)
+            h, cache = decode_attention(blk.attn, acfg, h,
+                                        state["kv"][i]._replace(length=pos))
+            x = x + h
+            h = blk.ln2(x)
+            st = None if solver is None else solver[i]
+            h2d, m, st = local_moe_apply(blk.moe, h.reshape(b, -1), cfg, st,
+                                         valid=active)
+            x = x + h2d.reshape(b, 1, -1)
+            acc = _accum(acc, m)
+            new_kv.append(cache)
+            new_solver.append(st)
+        new_state["kv"] = new_kv
+        if "solver" in state:
+            new_state["solver"] = new_solver if solver is not None else None
     x = model.final_norm(x)
     logits = x @ (model.head if model.head is not None else model.embed.T)
     if with_metrics:
@@ -611,16 +646,23 @@ def decode_step(model: Decoder, state: dict, batch: dict,
 
 
 def reset_decode_slots(state: dict, mask: torch.Tensor) -> dict:
-    """Clear the KV caches and positions of the slots where ``mask`` (bool[B])
-    is set, so a new request can be admitted into them.  The solver warm
-    start belongs to the expert-load stream, not to a sequence, and is
-    kept."""
+    """Clear the per-sequence caches (KV caches, or the RWKV-6 wkv and both
+    shifts) and positions of the slots where ``mask`` (bool[B]) is set, so
+    a new request can be admitted into them; the other slots are left as
+    they are.  The solver warm start belongs to the expert-load stream, not
+    to a sequence, and is kept."""
     out = dict(state)
     out["pos"] = torch.where(mask, torch.zeros_like(state["pos"]),
                              state["pos"])
-    m = mask[:, None, None, None]
-    out["kv"] = [KVCache(k=torch.where(m, torch.zeros_like(c.k), c.k),
-                         v=torch.where(m, torch.zeros_like(c.v), c.v),
-                         length=c.length)
-                 for c in state["kv"]]
+
+    def clear(a: torch.Tensor) -> torch.Tensor:
+        m = mask.reshape(-1, *([1] * (a.dim() - 1)))
+        return torch.where(m, torch.zeros_like(a), a)
+
+    if "kv" in state:
+        out["kv"] = [KVCache(k=clear(c.k), v=clear(c.v), length=c.length)
+                     for c in state["kv"]]
+    if "rwkv" in state:
+        out["rwkv"] = [RWKVState(*(clear(a) for a in st))
+                       for st in state["rwkv"]]
     return out

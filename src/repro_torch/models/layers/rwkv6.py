@@ -1,17 +1,22 @@
-"""RWKV-6 (Finch) block [arXiv:2404.05892] for the full-sequence forward
-(twin of the stateless path of ``repro.models.layers.rwkv6``).
+"""RWKV-6 (Finch) block [arXiv:2404.05892] (twin of
+``repro.models.layers.rwkv6``): the full-sequence forward and the stateful
+decode.
 
 Time mixing: token-shift interpolation (data-dependent through a LoRA on
 the shift mix), r/k/v/g projections, per-channel decay w_t =
 exp(-exp(w_proj(x_t))), the WKV recurrence (``ops.wkv6``: K3 on a CUDA
-device), a group norm over heads and a gated output.  Channel mixing: the
-RWKV squared-ReLU mixer.  Parameters keep the reference's names and layout
-(``x @ W`` with W [in, out]).
+device from a zero state, K3s from a carried state), a group norm over
+heads and a gated output.  Channel mixing: the RWKV squared-ReLU mixer.
+Parameters keep the reference's names and layout (``x @ W`` with W [in,
+out]).
 
-The stateful decode branch (an incoming WKV state and shift, one token per
-step) is not ported yet: serving rwkv6-7b needs a state-carrying K3.
+Decode carries an :class:`RWKVState` per layer and slot: the WKV state
+[B, H, D, D] and the last hidden of each mixer (the token shift), O(1) per
+token.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -20,9 +25,17 @@ from torch import nn
 from ...kernels import ops
 from .norms import Norm
 
-__all__ = ["TimeMix", "ChannelMix", "init_rwkv6", "init_rwkv6_channel"]
+__all__ = ["RWKVState", "TimeMix", "ChannelMix", "init_rwkv6",
+           "init_rwkv6_channel"]
 
 GN_EPS = 64e-5   # RWKV-6's per-head group-norm epsilon
+
+
+class RWKVState(NamedTuple):
+    """One RWKV-6 layer's decode state, batched over slots."""
+    wkv: torch.Tensor       # [B, H, D, D] float32, S[i][j]: i the k channel
+    shift_t: torch.Tensor   # [B, dm] last hidden seen by the time mix
+    shift_c: torch.Tensor   # [B, dm] last hidden seen by the channel mix
 
 
 def _param(*shape, device) -> nn.Parameter:
@@ -30,9 +43,13 @@ def _param(*shape, device) -> nn.Parameter:
                         requires_grad=False)
 
 
-def _shifted(x: torch.Tensor) -> torch.Tensor:
-    """x_{t-1} along T, zeros before the first token: [B, T, dm]."""
-    return F.pad(x[:, :-1], (0, 0, 1, 0))
+def _shifted(x: torch.Tensor,
+             prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x_{t-1} along T: [B, T, dm], with ``prev`` [B, dm] (the last hidden
+    of the previous call) before the first token, or zeros."""
+    if prev is None:
+        return F.pad(x[:, :-1], (0, 0, 1, 0))
+    return torch.cat([prev[:, None].to(x.dtype), x[:, :-1]], dim=1)
 
 
 class TimeMix(nn.Module):
@@ -60,20 +77,28 @@ class TimeMix(nn.Module):
         self.wo = _param(dm, dm, device=device)
         self.gn = Norm(dm, "ln", device=device)
 
-    def _mix_streams(self, x: torch.Tensor):
-        """x: [B, T, dm] -> the five mixed streams xr, xk, xv, xw, xg."""
-        delta = _shifted(x) - x
+    def _mix_streams(self, x: torch.Tensor, x_prev: torch.Tensor):
+        """x, x_prev: [B, T, dm] -> the five mixed streams xr, xk, xv, xw,
+        xg."""
+        delta = x_prev - x
         lora = torch.tanh(x @ self.mix_lora_a) @ self.mix_lora_b  # [B,T,5dm]
         lora = lora.reshape(*x.shape[:-1], 5, x.shape[-1]).movedim(-2, 0)
         mix = self.mix_base[:, None, None, :] + lora              # [5,B,T,dm]
         return (x[None] + delta[None] * mix).unbind(0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, T, dm] -> [B, T, dm], from a zero WKV state."""
+    def forward(self, x: torch.Tensor, state: Optional[RWKVState] = None):
+        """x: [B, T, dm] -> [B, T, dm], from a zero WKV state and a zero
+        shift (the full-sequence forward, K3).
+
+        With ``state`` (decode) the shift starts from ``state.shift_t`` and
+        the recurrence from ``state.wkv`` (K3s), and the result is (out
+        [B, T, dm], the new wkv [B, H, D, D] float32, the new shift x[:, -1]
+        [B, dm]); ``state`` is not modified."""
         b, t, dm = x.shape
         h = self.num_heads
         hd = dm // h
-        xr, xk, xv, xw, xg = self._mix_streams(x)
+        xr, xk, xv, xw, xg = self._mix_streams(
+            x, _shifted(x, None if state is None else state.shift_t))
         r = xr @ self.wr
         k = xk @ self.wk
         v = xv @ self.wv
@@ -87,7 +112,12 @@ class TimeMix(nn.Module):
                     .reshape(b * h, t, hd).contiguous()
 
         u = self.u[None].expand(b, h, hd).reshape(b * h, hd).contiguous()
-        o = ops.wkv6(split(r), split(k), split(v), split(lw), u)
+        if state is None:
+            o = ops.wkv6(split(r), split(k), split(v), split(lw), u)
+        else:
+            o, wkv = ops.wkv6(split(r), split(k), split(v), split(lw), u,
+                              state=state.wkv.reshape(b * h, hd, hd)
+                              .contiguous())
         o = o.reshape(b, h, t, hd).transpose(1, 2)               # [B,T,H,D]
         # GroupNorm with groups = heads: normalise per head, affine
         # parameters over the full channel dim
@@ -96,7 +126,10 @@ class TimeMix(nn.Module):
         var = of.var(-1, keepdim=True, correction=0)
         o = ((of - mu) * torch.rsqrt(var + GN_EPS)).reshape(b, t, dm)
         o = (o * self.gn.scale.float() + self.gn.bias.float()).to(x.dtype)
-        return (o * g) @ self.wo
+        out = (o * g) @ self.wo
+        if state is None:
+            return out
+        return out, wkv.reshape(b, h, hd, hd), x[:, -1]
 
 
 class ChannelMix(nn.Module):
@@ -111,12 +144,20 @@ class ChannelMix(nn.Module):
         self.wv = _param(d_ff, d_model, device=device)
         self.wr = _param(d_model, d_model, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        delta = _shifted(x) - x
+    def forward(self, x: torch.Tensor,
+                state_prev: Optional[torch.Tensor] = None):
+        """x: [B, T, dm] -> [B, T, dm], from a zero shift.  With
+        ``state_prev`` [B, dm] (decode: the last hidden of the previous
+        call) the shift starts from it and the result is (out, the new
+        shift x[:, -1])."""
+        delta = _shifted(x, state_prev) - x
         xk = x + delta * torch.tanh(self.mix_k)
         xr = x + delta * torch.tanh(self.mix_r)
         k = torch.square(torch.relu(xk @ self.wk))
-        return torch.sigmoid(xr @ self.wr) * (k @ self.wv)
+        out = torch.sigmoid(xr @ self.wr) * (k @ self.wv)
+        if state_prev is None:
+            return out
+        return out, x[:, -1]
 
 
 def _fill(w: torch.Tensor, g: torch.Generator, scale: float) -> None:

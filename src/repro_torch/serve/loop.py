@@ -3,12 +3,15 @@ of ``ServingSession`` / ``ServeReport`` in ``repro.serve.loop``).
 
 Per decode step:
   1. admit arrived requests into free slots against the KV budget (slot
-     caches are reset with ``decoder.reset_decode_slots``);
+     caches, or RWKV-6 states, are reset with
+     ``decoder.reset_decode_slots``);
   2. feed one token per active slot (the prompt token while prefilling,
-     else the slot's last sampled token);
+     else the slot's last sampled token): a prompt is fed one token a step,
+     as the reference does;
   3. run the decode step.  Inside it every MoE layer re-solves the MicroEP
      LP on the live batch's expert loads, warm-started from the previous
-     step, and runs the grouped FFN through K1 on a CUDA device;
+     step, and runs the grouped FFN through K1 on a CUDA device; every
+     RWKV-6 layer runs its recurrence from the slot's state through K3s;
   4. harvest the sampled tokens and retire finished sequences.
 
 The step clock (one tick per step) is the virtual time base for arrivals,
@@ -36,7 +39,8 @@ __all__ = ["ServingSession", "ServeReport"]
 class ServeReport:
     """Aggregate + per-request serving statistics (the reference's JSON
     schema; this single-device loop has no replacement hook, so its
-    migration fields are always empty)."""
+    migration fields are always empty).  A decoder without MoE layers
+    reports ``mean_balance`` None and ``overflow`` 0."""
 
     records: List[RequestRecord]
     steps: int                       # step clock at the end of the run
@@ -97,7 +101,8 @@ class ServeReport:
 
 
 class ServingSession:
-    """Continuous-batching server for one MoE decoder on one device.
+    """Continuous-batching server for one decoder on one device: an
+    attention + MoE decoder or an RWKV-6 decoder (``check_servable``).
 
     ``device`` defaults to "cuda" and raises when no CUDA device exists;
     the plain CPU path runs only with ``device="cpu"``.  ``model`` is a
@@ -132,13 +137,14 @@ class ServingSession:
         sc = self.serve_cfg
         state = dec.init_decode_state(self.cfg, sc.max_batch, sc.max_seq,
                                       device=self.device)
-        state["solver"] = dec.init_solver_states(self.cfg, 1,
-                                                 device=self.device)
+        if self.cfg.moe:
+            state["solver"] = dec.init_solver_states(self.cfg, 1,
+                                                     device=self.device)
         return state
 
     def _warmup(self, state: dict) -> None:
-        """One step and one reset before the clock starts (builds K1 and
-        warms the allocator); the state is not modified."""
+        """One step and one reset before the clock starts (builds the
+        kernels and warms the allocator); the state is not modified."""
         b = self.serve_cfg.max_batch
         nxt, _, _ = self._step(
             state, torch.zeros((b, 1), dtype=torch.int64, device=self.device),

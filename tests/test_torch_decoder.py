@@ -2,7 +2,8 @@
 reference ``decode_step`` on the smoke configs, with the reference weights
 carried over by ``load_reference_params``: per-slot positions, an ``active``
 mask and ``reset_decode_slots`` included.  Logits within 1e-4 and the
-solver warm start carried step to step."""
+solver warm start (attention + MoE) or every layer's RWKV-6 state (rwkv6-7b)
+carried step to step."""
 import dataclasses
 
 import jax
@@ -80,3 +81,80 @@ def test_load_reference_params_rejects_wrong_depth():
     with pytest.raises(ValueError, match="layers"):
         tdec.load_reference_params(
             jax.tree_util.tree_map(np.asarray, params), deeper, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def rwkv():
+    """rwkv6-7b smoke: the reference weights and their port, and the
+    reference's decode step and slot reset, each jitted once."""
+    ref_cfg = get_config("rwkv6-7b").smoke()
+    cfg = TorchArchConfig(**dataclasses.asdict(ref_cfg))
+    params = rdec.init_params(jax.random.PRNGKey(4), ref_cfg)
+    model = tdec.load_reference_params(
+        jax.tree_util.tree_map(np.asarray, params), cfg, device="cpu")
+    ref_step = jax.jit(lambda s, toks, act: rdec.decode_step(
+        params, ref_cfg, s, {"tokens": toks, "active": act},
+        with_metrics=True))
+    return ref_cfg, cfg, params, model, ref_step, jax.jit(
+        rdec.reset_decode_slots)
+
+
+def test_rwkv_decode_step_matches_reference(rwkv):
+    """Five steps with an inactive slot and a slot reset: logits within
+    1e-4, positions equal, and every layer's wkv state and both shifts
+    within 1e-4, as the logits (the reference's layer r is rep r of its
+    stacked scan state; past layer 0 the states carry the f32 rounding of
+    the layers below); zero MoE metrics and no solver state."""
+    ref_cfg, cfg, _, model, ref_step, ref_reset = rwkv
+    ref_state = rdec.init_decode_state(ref_cfg, B, MAX_SEQ, per_slot=True)
+    state = tdec.init_decode_state(cfg, B, MAX_SEQ, device="cpu")
+    assert "solver" not in state and len(state["rwkv"]) == cfg.num_layers
+    rng = np.random.default_rng(1)
+    actives = [[1, 1, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1], [1, 1, 0]]
+    for i, act in enumerate(actives):
+        if i == 3:                          # a new request takes slot 1
+            mask = np.array([False, True, False])
+            ref_state = ref_reset(ref_state, jnp.asarray(mask))
+            before = state["rwkv"][0].wkv.clone()
+            state = tdec.reset_decode_slots(state, torch.tensor(mask))
+            assert not state["rwkv"][0].wkv[1].any()
+            assert torch.equal(state["rwkv"][0].wkv[[0, 2]], before[[0, 2]])
+        toks = rng.integers(0, cfg.vocab, size=(B, 1))
+        act = np.asarray(act, bool)
+        logits_r, ref_state, _ = ref_step(
+            ref_state, jnp.asarray(toks, jnp.int32), jnp.asarray(act))
+        logits, state, m = tdec.decode_step(
+            model, state, {"tokens": torch.tensor(toks),
+                           "active": torch.tensor(act)}, with_metrics=True)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(logits_r),
+                                   rtol=1e-4, atol=1e-4, err_msg=f"step {i}")
+        np.testing.assert_array_equal(state["pos"].numpy(),
+                                      np.asarray(ref_state["pos"]))
+        scan = ref_state["scan"][0]
+        for layer, st in enumerate(state["rwkv"]):
+            for name in ("wkv", "shift_t", "shift_c"):
+                np.testing.assert_allclose(
+                    getattr(st, name).numpy(),
+                    np.asarray(getattr(scan, name))[layer], rtol=1e-4,
+                    atol=1e-4, err_msg=f"step {i} layer {layer} {name}")
+        assert float(m.balance) == 0.0 and float(m.overflow) == 0.0
+
+
+def test_rwkv_decode_matches_forward(rwkv):
+    """Teacher forcing: token-by-token decode from zero states gives the
+    port's own full-sequence forward's logits (the reference test's
+    tolerance, 2e-3)."""
+    _, cfg, _, model, _, _ = rwkv
+    b, t = 2, 8
+    tokens = torch.tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(b, t)))
+    expect = tdec.forward(model, {"tokens": tokens})[0]
+    state = tdec.init_decode_state(cfg, b, t, device="cpu")
+    outs = []
+    for i in range(t):
+        logits, state = tdec.decode_step(model, state,
+                                         {"tokens": tokens[:, i:i + 1]})
+        outs.append(logits[:, 0])
+    np.testing.assert_allclose(torch.stack(outs, 1).numpy(), expect.numpy(),
+                               rtol=2e-3, atol=2e-3)
+    np.testing.assert_array_equal(state["pos"].numpy(), [t] * b)

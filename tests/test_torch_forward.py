@@ -135,14 +135,22 @@ def test_moe_forward_matches_reference(name):
 
 
 def test_serving_refuses_rwkv_configs(rwkv):
+    """The decode step serves the RWKV-6 decoder itself (pattern
+    ("rwkv",), no MoE) and still refuses the RWKV configs it has no block
+    for: RWKV-6 mixed with attention, and RWKV-6 with MoE layers."""
     model = rwkv[0]
     state = tdec.init_decode_state(model.cfg, 1, 8, device="cpu")
-    with pytest.raises(ValueError, match="RWKV-6 decode"):
-        tdec.decode_step(model, state,
-                         {"tokens": torch.zeros((1, 1), dtype=torch.long)})
-    with pytest.raises(ValueError, match="RWKV-6 decode"):
-        ServingSession(model.cfg, ServeConfig(max_batch=1, max_seq=8),
-                       device="cpu", model=model)
+    logits, _ = tdec.decode_step(
+        model, state, {"tokens": torch.zeros((1, 1), dtype=torch.long)})
+    assert logits.shape == (1, 1, model.cfg.vocab)
+    for bad in (dataclasses.replace(model.cfg, pattern=("rwkv", "attn")),
+                dataclasses.replace(model.cfg, moe=True, num_experts=4,
+                                    top_k=2, moe_d_ff=64)):
+        with pytest.raises(ValueError, match="not ported"):
+            tdec.check_servable(bad)
+        with pytest.raises(ValueError, match="not ported"):
+            ServingSession(bad, ServeConfig(max_batch=1, max_seq=8),
+                           device="cpu")
 
 
 @pytest.mark.parametrize("chunk_t", [16, 5], ids=["one-chunk", "ragged"])

@@ -1,8 +1,8 @@
-"""Tests of the port that need the card: K1, K1b, K2, K3 and K4 (CUDA
+"""Tests of the port that need the card: K1, K1b, K2, K3, K3s and K4 (CUDA
 kernels, with no CPU or interpret mode) against their plain versions on the
-same inputs, K1, K1b and K3 against their own arithmetic in plain PyTorch,
-K1b and K3 against float64, and the training step on the card against the
-CPU's plain path.
+same inputs, K1, K1b, K3 and K3s against their own arithmetic in plain
+PyTorch, K1b, K3 and K3s against float64, the training step and the RWKV-6
+decode on the card against the CPU's plain path.
 They skip without a CUDA device.  This file imports no JAX, so it also runs where JAX
 is not installed:
 
@@ -15,7 +15,8 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.grouped_matmul import (grouped_ffn_flat_bwd_cuda,
                                                grouped_ffn_flat_cuda)
-from repro_torch.launch import check_train, time_k1b, time_k4
+from repro_torch.kernels.wkv6_chunk import wkv6_cuda, wkv6_state_cuda
+from repro_torch.launch import check_train, time_k1b, time_k3, time_k4
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -508,3 +509,157 @@ def test_cuda_train_step_runs_each_kernel_per_layer_and_micro_batch():
             check_train.kernel_launches().items()} == dict.fromkeys(
         ("K1", "K1b", "K4"), expect)
     assert not any(plain.values()), plain
+
+
+def _k3s_case(bh, t, d, dtype, offset=0, seed=0):
+    """q, k, v, lw, u in ``dtype`` and a nonzero f32 state, drawn with numpy,
+    each ``offset`` elements past its allocation on the card."""
+    rng = np.random.default_rng(seed + bh * 1000 + t * 10 + d)
+    q, k, v = (rng.standard_normal((bh, t, d)) * 0.5 for _ in range(3))
+    lw = -np.exp(rng.standard_normal((bh, t, d)) * 0.5 - 5.0)
+    u = rng.standard_normal((bh, d)) * 0.5
+    s0 = rng.standard_normal((bh, d, d)) * 2.0
+
+    def on_card(a, dt):
+        flat = torch.empty(a.size + offset, dtype=dt, device="cuda")
+        x = flat[offset:].view(a.shape)
+        x.copy_(torch.tensor(a, dtype=dt))
+        return x
+
+    return ([on_card(a, dtype) for a in (q, k, v, lw, u)],
+            on_card(s0, torch.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,t,d", [(3, 1, 64), (2, 7, 64), (2, 15, 64),
+                                    (2, 16, 64), (2, 17, 64), (1, 100, 64),
+                                    (2, 7, 40), (2, 1, 128), (2, 33, 128),
+                                    (256, 1, 64)])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset1"])
+def test_cuda_k3s_matches_plain_version(bh, t, d, dtype, offset):
+    """K3s from a nonzero state against the plain version, o and the final
+    state, f32 rtol = atol = 1e-4, bf16 5e-2, on both sides of the switch
+    from the step-by-step kernel to the sub-chunk kernel (T 15 | 16), at
+    the decode geometry (256, 1, 64) and at unaligned addresses; the input
+    state is not modified."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K3s is a CUDA kernel)")
+    x, s0 = _k3s_case(bh, t, d, dtype, offset)
+    kept = s0.clone()
+    o, s = ops.wkv6(*x, state=s0)
+    o_p, s_p = ref.wkv6_chunk_ref(*x[:3], torch.exp(x[3].float()), x[4], s0)
+    assert o.dtype == dtype and s.dtype == torch.float32
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(o.float(), o_p.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(s, s_p, rtol=tol, atol=tol)
+    assert torch.equal(s0, kept)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,t,d", [(256, 1, 64), (3, 5, 64), (2, 9, 40),
+                                    (2, 3, 128)])
+def test_cuda_k3s_short_t_matches_its_order_of_sums(bh, t, d):
+    """Below 16 steps K3s runs step by step; ``ref.wkv6_step_ref`` repeats
+    its order of sums (it rounds twice where the kernel fuses a multiply
+    and an add), f32 rtol = atol = 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K3s is a CUDA kernel)")
+    x, s0 = _k3s_case(bh, t, d, torch.float32, seed=5)
+    o, s = ops.wkv6(*x, state=s0)
+    o_r, s_r = ref.wkv6_step_ref(*x, state=s0)
+    torch.testing.assert_close(o, o_r, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s, s_r, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [16, 40, 100])
+def test_cuda_k3s_long_t_matches_its_subchunk_arithmetic(t):
+    """From 16 steps on K3s runs K3's sub-chunks from the carried state;
+    ``ref.wkv6_subchunk_ref`` with the state repeats that arithmetic, f32
+    rtol = atol = 1e-4 (the kernel truncates inside each sub-chunk's
+    tensor-core sums, where PyTorch rounds)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K3s is a CUDA kernel)")
+    x, s0 = _k3s_case(2, t, 64, torch.float32, seed=6)
+    o, s = ops.wkv6(*x, state=s0)
+    o_r, s_r = ref.wkv6_subchunk_ref(*x, state=s0)
+    torch.testing.assert_close(o, o_r, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s, s_r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_k3s_checks_of_chip_smoke():
+    """``time_k3.check_state``, the K3s checks of ``chip_smoke.py`` phase 7:
+    every T of ``STATE_T`` and the decode geometry against the plain
+    version, the carried state's continuity, bit-for-bit repeats, the
+    float64 guard over 512 chained decode steps (at most 2x the f32 plain
+    version's error) and unaligned tensors; its own launches uncounted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K3s is a CUDA kernel)")
+    before = wkv6_cuda.launches, wkv6_state_cuda.launches
+    r = time_k3.check_state(torch.device("cuda", 0))
+    assert r["guard"][0] <= 2 * r["guard"][1]
+    assert (wkv6_cuda.launches, wkv6_state_cuda.launches) == before
+
+
+@pytest.mark.gpu
+def test_cuda_k3s_state_wrapper_refuses_bad_states():
+    """The state must be a contiguous float32 [BH, D, D] tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K3s is a CUDA kernel)")
+    x, s0 = _k3s_case(2, 1, 64, torch.float32)
+    with pytest.raises(TypeError, match="float32"):
+        wkv6_state_cuda(*x, s0.double())
+    with pytest.raises(ValueError, match="state"):
+        wkv6_state_cuda(*x, s0[:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv6_state_cuda(*x, s0.transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv6_state_cuda(*x, s0.cpu())
+
+
+@pytest.mark.gpu
+def test_cuda_rwkv_decode_matches_cpu():
+    """rwkv6-7b smoke, six decode steps with a slot reset, on the card and
+    on the CPU with identical weights: logits within rtol = atol = 1e-4 and
+    every layer's state within 1e-4 of its largest magnitude (an entry may
+    come out of cancellation); every layer of every step launches K3s once,
+    and neither K3 nor the plain recurrence runs on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K3s is a CUDA kernel)")
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.models import decoder as dec
+    cfg = get_config("rwkv6-7b").smoke()
+    cpu_model = dec.init_params(cfg, seed=2, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    states = {"cpu": dec.init_decode_state(cfg, 3, 8, device="cpu"),
+              "cuda": dec.init_decode_state(cfg, 3, 8, device="cuda")}
+    toks = torch.tensor(np.random.default_rng(3).integers(0, cfg.vocab,
+                                                          size=(6, 3, 1)))
+    before = wkv6_cuda.launches, wkv6_state_cuda.launches
+    plain_calls = []
+    plain = ref.wkv6_chunk_ref
+    for i in range(6):
+        if i == 3:
+            mask = torch.tensor([False, True, False])
+            states = {dev: dec.reset_decode_slots(st, mask.to(dev))
+                      for dev, st in states.items()}
+        logits = {}
+        for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+            if dev == "cuda":
+                ref.wkv6_chunk_ref = lambda *a, **k: plain_calls.append(1)
+            try:
+                logits[dev], states[dev] = dec.decode_step(
+                    model, states[dev], {"tokens": toks[i].to(dev)})
+            finally:
+                ref.wkv6_chunk_ref = plain
+        torch.testing.assert_close(logits["cuda"].cpu(), logits["cpu"],
+                                   rtol=1e-4, atol=1e-4)
+        for a, b in zip(states["cuda"]["rwkv"], states["cpu"]["rwkv"]):
+            for x, y in zip(a, b):
+                assert (x.cpu() - y).abs().max() <= 1e-4 * y.abs().max()
+    assert (wkv6_cuda.launches - before[0],
+            wkv6_state_cuda.launches - before[1]) == (0, 6 * cfg.num_layers)
+    assert not plain_calls

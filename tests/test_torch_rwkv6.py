@@ -1,7 +1,9 @@
 """The port's RWKV-6 time-mix and channel-mix modules
 (``repro_torch.models.layers.rwkv6``) against ``rwkv6_time_mix`` /
 ``rwkv6_channel_mix`` at rwkv6-7b's smoke widths, with the reference
-weights carried over by the port's loader and the same numpy input."""
+weights carried over by the port's loader and the same numpy input: the
+full-sequence path from a zero state, and the decode path from a carried
+state (wkv and both shifts)."""
 import dataclasses
 
 import jax
@@ -12,9 +14,11 @@ import torch
 
 from repro.configs import get_config
 from repro.models import decoder as rdec
-from repro.models.layers.rwkv6 import rwkv6_channel_mix, rwkv6_time_mix
+from repro.models.layers.rwkv6 import (RWKVState, rwkv6_channel_mix,
+                                       rwkv6_time_mix)
 from repro_torch.configs.base import ArchConfig as TorchArchConfig
 from repro_torch.models import decoder as tdec
+from repro_torch.models.layers.rwkv6 import RWKVState as TorchRWKVState
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -75,3 +79,46 @@ def test_loader_places_every_rwkv_leaf(loaded):
                 leaf = leaf[part]
             np.testing.assert_array_equal(w.numpy(), np.asarray(leaf))
     assert tuple(blk.time.u.shape) == (4, 64)
+
+
+def _decode_state(cfg, b, seed=3):
+    """A nonzero decode state: wkv [B, H, D, D] f32, shifts [B, dm]."""
+    rng = np.random.default_rng(seed)
+    hd = cfg.d_model // cfg.num_heads
+    return (rng.standard_normal((b, cfg.num_heads, hd, hd)).astype(np.float32),
+            rng.standard_normal((b, cfg.d_model)).astype(np.float32),
+            rng.standard_normal((b, cfg.d_model)).astype(np.float32))
+
+
+@pytest.mark.parametrize("t", [1, 3])
+def test_time_mix_with_state_matches_reference(loaded, t):
+    """From a carried wkv state and shift: the output, the new wkv and the
+    new shift x[:, -1] against ``rwkv6_time_mix(..., state=RWKVState)``."""
+    ref_cfg, model, block0, x = loaded
+    x = x[:, :t]
+    wkv, shift_t, shift_c = _decode_state(ref_cfg, x.shape[0], seed=t)
+    expect, wkv_r, shift_r = rwkv6_time_mix(
+        block0["time"], jnp.asarray(x), ref_cfg.num_heads,
+        state=RWKVState(*(jnp.asarray(a) for a in (wkv, shift_t, shift_c))))
+    state = TorchRWKVState(*(torch.tensor(a) for a in (wkv, shift_t, shift_c)))
+    got, wkv_t, shift = model.blocks[0].time(torch.tensor(x), state)
+    assert got.shape == x.shape and wkv_t.shape == wkv.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(expect), **TOL)
+    np.testing.assert_allclose(wkv_t.numpy(), np.asarray(wkv_r), **TOL)
+    np.testing.assert_array_equal(shift.numpy(), np.asarray(shift_r))
+    np.testing.assert_array_equal(state.wkv.numpy(), wkv)   # not modified
+
+
+@pytest.mark.parametrize("t", [1, 3])
+def test_channel_mix_with_state_matches_reference(loaded, t):
+    """From a carried shift: the output and the new shift against
+    ``rwkv6_channel_mix(..., state_prev=)``."""
+    ref_cfg, model, block0, x = loaded
+    x = x[:, :t]
+    _, _, shift_c = _decode_state(ref_cfg, x.shape[0], seed=10 + t)
+    expect, shift_r = rwkv6_channel_mix(block0["chan"], jnp.asarray(x),
+                                        state_prev=jnp.asarray(shift_c))
+    got, shift = model.blocks[0].chan(torch.tensor(x),
+                                      torch.tensor(shift_c))
+    np.testing.assert_allclose(got.numpy(), np.asarray(expect), **TOL)
+    np.testing.assert_array_equal(shift.numpy(), np.asarray(shift_r))

@@ -1,7 +1,7 @@
 """The port's serving loop (``repro_torch.serve``) against the reference
 ``ServingSession``: the golden arrivals, served with the same weights, give
-identical per-request tokens, and the port's canonical report equals the
-golden co-located fixture."""
+identical per-request tokens (paper-gpt-32x1.3b and rwkv6-7b smoke), and the
+port's canonical report equals the golden co-located fixture."""
 import dataclasses
 import json
 import pathlib
@@ -15,7 +15,7 @@ from repro.engine import ServeConfig
 from repro.serve import ServingSession, poisson_trace, replay_trace
 from repro_torch.configs.base import ArchConfig as TorchArchConfig
 from repro_torch.engine import ServeConfig as TorchServeConfig
-from repro_torch.models.decoder import load_reference_params
+from repro_torch.models.decoder import check_servable, load_reference_params
 from repro_torch.serve import ServingSession as TorchServingSession
 from repro_torch.serve import poisson_trace as torch_poisson_trace
 from repro_torch.serve import replay_trace as torch_replay_trace
@@ -71,3 +71,44 @@ def test_golden_serving_tokens_and_report_match_reference():
     golden = json.loads(GOLDEN.read_text())["moe"]
     got = json.loads(json.dumps(_canonical(rep.to_dict()), sort_keys=True))
     assert got == golden
+
+
+def test_rwkv_serving_tokens_match_reference():
+    """rwkv6-7b smoke served on the golden arrivals (prompts fed one token a
+    step, each slot's RWKV-6 state reset on admission): the reference
+    session's tokens per request; no MoE layer, so no balance and no
+    overflow."""
+    ref_cfg = get_config("rwkv6-7b").smoke()
+    cfg = TorchArchConfig(**dataclasses.asdict(ref_cfg))
+    ref_sess = ServingSession(ref_cfg, ServeConfig(max_batch=3, max_seq=24),
+                              seed=0)
+    ref_rep = ref_sess.run(replay_trace(_GOLDEN_ARRIVALS,
+                                        vocab=ref_cfg.vocab, seed=11))
+    model = load_reference_params(
+        jax.tree_util.tree_map(np.asarray, ref_sess.params), cfg,
+        device="cpu")
+    sess = TorchServingSession(cfg, TorchServeConfig(max_batch=3, max_seq=24),
+                               device="cpu", model=model)
+    rep = sess.run(torch_replay_trace(_GOLDEN_ARRIVALS, vocab=cfg.vocab,
+                                      seed=11))
+    assert [r.tokens for r in rep.records] == \
+        [r.tokens for r in ref_rep.records]
+    assert [r.n_generated for r in rep.records] == \
+        [g for _, _, g in _GOLDEN_ARRIVALS]
+    assert rep.mean_balance is None and ref_rep.mean_balance is None
+    assert rep.overflow == 0.0 and rep.steps == ref_rep.steps
+
+
+@pytest.mark.parametrize("arch,servable", [
+    ("rwkv6-7b", True), ("gemma3-4b", False), ("recurrentgemma-9b", False)],
+    ids=["rwkv", "windowed", "rglru"])
+def test_check_servable_takes_rwkv_and_refuses_other_blocks(arch, servable):
+    """The decode step serves RWKV-6 decoders now; sliding-window attention
+    and RG-LRU blocks are still refused."""
+    cfg = TorchArchConfig(**dataclasses.asdict(get_config(arch)))
+    if servable:
+        check_servable(cfg)
+        check_servable(cfg.smoke())
+    else:
+        with pytest.raises(ValueError, match="not ported"):
+            check_servable(cfg)

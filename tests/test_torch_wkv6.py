@@ -1,8 +1,10 @@
-"""The port's plain RWKV-6 recurrence, K3's own arithmetic
-(``ref.wkv6_subchunk_ref``) and the ``ops.wkv6`` entry point
-(``repro_torch.kernels``) against the JAX reference: the same numpy inputs,
-made from a seed, go through both.  K3 itself is a CUDA kernel and runs only
-on the card (``chip_smoke.py``, ``test_torch_gpu.py``)."""
+"""The port's plain RWKV-6 recurrence, K3's own arithmetic (the sub-chunk
+algebra ``ref.wkv6_subchunk_ref`` and the step-by-step order
+``ref.wkv6_step_ref``) and the ``ops.wkv6`` entry point
+(``repro_torch.kernels``), with and without a carried state, against the
+JAX reference: the same numpy inputs, made from a seed, go through both.
+K3 and K3s are CUDA kernels and run only on the card (``chip_smoke.py``,
+``test_torch_gpu.py``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -10,9 +12,10 @@ import pytest
 import torch
 
 from repro.kernels import ops, ref
+from repro.models.layers.rwkv6 import _wkv_with_state
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.wkv6_chunk import wkv6_cuda
+from repro_torch.kernels.wkv6_chunk import wkv6_cuda, wkv6_state_cuda
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=5e-2, atol=5e-2)
@@ -125,8 +128,10 @@ def test_subchunk_algebra_matches_reference(case):
     of the card (rtol = atol = 1e-4)."""
     bh, t, d, draw = SUBCHUNK_CASES[case]
     q, k, v, lw, u = draw(17 + t + d, bh, t, d)
-    got = tref.wkv6_subchunk_ref(*(torch.tensor(a) for a in (q, k, v, lw, u)))
+    got, s_t = tref.wkv6_subchunk_ref(*(torch.tensor(a)
+                                        for a in (q, k, v, lw, u)))
     assert got.dtype == torch.float32 and got.shape == (bh, t, d)
+    assert s_t.dtype == torch.float32 and s_t.shape == (bh, d, d)
     zeros = np.zeros((bh, d, d), np.float32)
     expect, _ = _jax_ref(*(jnp.asarray(a) for a in (q, k, v, np.exp(lw), u)),
                          jnp.asarray(zeros))
@@ -151,10 +156,10 @@ def test_single_tf32_pass_misses_the_f32_check(monkeypatch):
     def worst(got):   # the largest share of the allowance used
         return ((got - expect).abs() / (1e-4 + 1e-4 * expect.abs())).max().item()
 
-    split = worst(tref.wkv6_subchunk_ref(q, k, v, lw, u))
+    split = worst(tref.wkv6_subchunk_ref(q, k, v, lw, u)[0])
     monkeypatch.setattr(tref, "_mm_3xtf32",
                         lambda a, b: tref._tf32(a) @ tref._tf32(b))
-    single = worst(tref.wkv6_subchunk_ref(q, k, v, lw, u))
+    single = worst(tref.wkv6_subchunk_ref(q, k, v, lw, u)[0])
     assert split < 1 < single / 10, (split, single)
 
 
@@ -163,3 +168,86 @@ def test_k3_rejects_cpu_tensors():
     q, k, v, lw, u = (torch.tensor(a) for a in _case(0, 1, 8, 64))
     with pytest.raises(ValueError, match="CUDA"):
         wkv6_cuda(q, k, v, lw, u)
+
+
+def _state(seed, bh, d):
+    """A nonzero f32 state [BH, D, D] of the size a long decode builds."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((bh, d, d)) * 2.0).astype(np.float32)
+
+
+def _ref_with_state(q, k, v, lw, u, s0):
+    """The reference's decode recurrence, ``_wkv_with_state``, unchanged."""
+    o, s = _wkv_with_state(*(jnp.asarray(a) for a in (q, k, v, lw, u, s0)))
+    return np.asarray(o), np.asarray(s)
+
+
+STATE_IMPLS = {   # the CPU entry point, and K3s's step-by-step order of sums
+    "ops": lambda *a, state: tops.wkv6(*a, state=state),
+    "step-order": lambda *a, state: tref.wkv6_step_ref(*a, state=state),
+}
+
+
+@pytest.mark.parametrize("impl", list(STATE_IMPLS))
+@pytest.mark.parametrize("bh,t,d", [(3, 1, 64), (2, 5, 64), (2, 5, 40)],
+                         ids=["t1", "t5", "t5-d40"])
+def test_wkv6_with_state_matches_reference(impl, bh, t, d):
+    """From a nonzero state, o and the final state against the reference's
+    ``_wkv_with_state`` at the decode step's T = 1 and at T = 5, f32 (rtol
+    = atol = 1e-5); the state handed in is left as it was."""
+    q, k, v, lw, u = _model_case(40 + t + d, bh, t, d)
+    s0 = _state(t + d, bh, d)
+    o_r, s_r = _ref_with_state(q, k, v, lw, u, s0)
+    state = torch.tensor(s0)
+    o, s = STATE_IMPLS[impl](*(torch.tensor(a) for a in (q, k, v, lw, u)),
+                             state=state)
+    assert o.dtype == torch.float32 and o.shape == (bh, t, d)
+    assert s.dtype == torch.float32 and s.shape == (bh, d, d)
+    np.testing.assert_allclose(o.numpy(), o_r, **F32_TOL)
+    np.testing.assert_allclose(s.numpy(), s_r, **F32_TOL)
+    np.testing.assert_array_equal(state.numpy(), s0)
+
+
+@pytest.mark.parametrize("t", [7, 17, 100])
+def test_subchunk_algebra_with_state_matches_reference(t):
+    """K3's sub-chunk arithmetic from a nonzero state (the long-T path of
+    K3s), o and the final state, against the reference's sequential
+    recurrence from the same state at the card's f32 check (rtol = atol =
+    1e-4): T = 7 and 17 end inside a sub-chunk, 100 spans seven."""
+    bh, d = 2, 64
+    q, k, v, lw, u = _model_case(60 + t, bh, t, d)
+    s0 = _state(t, bh, d)
+    o_r, s_r = _jax_ref(*(jnp.asarray(a) for a in (q, k, v, np.exp(lw), u)),
+                        jnp.asarray(s0))
+    o, s = tref.wkv6_subchunk_ref(*(torch.tensor(a)
+                                    for a in (q, k, v, lw, u)),
+                                  state=torch.tensor(s0))
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_r), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_r), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_decode_steps_chain_to_one_evaluation():
+    """Eight T = 1 calls of ``ops.wkv6`` with the state carried equal one
+    evaluation over the eight steps (the serving path feeds a prompt one
+    token a step)."""
+    bh, t, d = 2, 8, 64
+    q, k, v, lw, u = (torch.tensor(a) for a in _model_case(3, bh, t, d))
+    state = torch.tensor(_state(5, bh, d))
+    o_all, s_all = tops.wkv6(q, k, v, lw, u, state=state)
+    outs, s = [], state
+    for i in range(t):
+        o, s = tops.wkv6(q[:, i:i + 1], k[:, i:i + 1], v[:, i:i + 1],
+                         lw[:, i:i + 1], u, state=s)
+        outs.append(o)
+    np.testing.assert_allclose(torch.cat(outs, 1).numpy(), o_all.numpy(),
+                               **F32_TOL)
+    np.testing.assert_allclose(s.numpy(), s_all.numpy(), **F32_TOL)
+
+
+def test_k3s_rejects_cpu_tensors():
+    """The state-carrying wrapper, like K3's, never takes a CPU tensor."""
+    q, k, v, lw, u = (torch.tensor(a) for a in _case(0, 1, 1, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv6_state_cuda(q, k, v, lw, u, torch.zeros(1, 64, 64))
