@@ -126,7 +126,25 @@ Phases, in order; any failure raises and exits nonzero:
  15. the serving path on the card against the CPU on rwkv6-7b smoke with
      identical weights: two decode steps' logits within rtol = atol =
      1e-4 and states within 1e-4 of their largest magnitude, identical
-     tokens per request.
+     tokens per request;
+ 16. the scheduler core at the paper's groups, through
+     ``MicroEPEngine.build(...).schedule`` on the card (K4, one launch a
+     call), every schedule equal bit for bit (x, x_int, flow, max_load,
+     balance) to the same engine's on the CPU (the plain version), cold
+     and with the warm start carried (``launch/time_k4.scheduler_core``):
+     (a) Fig. 7's group (2 x 4 devices, 32 experts, 2048 tokens a device,
+     Zipf s 0, 0.8, 1.6): MicroEP with Gauss-Seidel (30 sweeps) on the
+     random, latin and asymmetric placements (asymmetric from a stale
+     history), Jacobi on latin, vanilla mode and the five baselines, max
+     load over the ideal beside HiGHS's optimum; each Gauss-Seidel schedule
+     at or below 1.01 x the optimum + 1 and at or below Megatron's;
+     (b) olmoe-1b-7b's 64 experts on a 4 x 4 latin group: Gauss-Seidel,
+     Jacobi, routing without locality, a heterogeneous profile (weight 2
+     on half the devices), and MemFine caps from ``memory_plan`` of
+     ``MemoryModel.from_arch(olmoe-1b-7b)``, each warm max load beside
+     HiGHS's optimum; (c) Fig. 9's grid, (G, E) from (8, 32) to (64, 256)
+     on 2-row latin groups, both solver orders, cold and warm: K4's device
+     time.  K4 launched in the phase, counted from 0.
 The last two lines are the kernels' JSON record and the result object.
 """
 from __future__ import annotations
@@ -750,6 +768,21 @@ def phase_forward_parity(cfg, device) -> None:
     require(diff < 1e-4, f"card and CPU logits differ by {diff:.3e}")
 
 
+# -------------------------------------------- phase 16: the scheduler core
+
+
+def phase_sched_core() -> None:
+    from repro_torch.kernels.sched import schedule_cuda
+    from repro_torch.launch import time_k4
+    schedule_cuda.launches = 0
+    try:
+        time_k4.scheduler_core()
+    except AssertionError as exc:
+        raise SmokeFailure(str(exc)) from exc
+    require(schedule_cuda.launches > 0, "K4 did not run in phase 16")
+    print(f"  K4 launched {schedule_cuda.launches} times in the phase")
+
+
 # ------------------------------------------------------------ phase 10: K4
 
 
@@ -1301,6 +1334,10 @@ def main() -> int:
 
     print("[15] card vs CPU through the RWKV-6 serving path")
     phase_rwkv_parity(rwkv.smoke(), device)
+    torch.cuda.empty_cache()
+
+    print("[16] the scheduler core at the paper's groups")
+    phase_sched_core()
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     print(card)

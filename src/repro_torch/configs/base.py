@@ -50,6 +50,10 @@ class ArchConfig:
     fsdp_params: bool = False    # ZeRO-3-style non-expert param sharding
     source: str = ""
 
+    @property
+    def has_attention(self) -> bool:
+        return any(p.startswith("attn") for p in self.pattern)
+
     def smoke(self) -> "ArchConfig":
         """Reduced same-family variant for CPU smoke tests."""
         d_model = min(self.d_model, 256)

@@ -1,7 +1,8 @@
 """Token routing to expert replicas — Algorithm 1 (twin of
 ``repro.core.routing``).
 
-Phase 1 (locality): tokens on device g go to g's own replica first.
+Phase 1 (locality, unless ``locality=False``): tokens on device g go to
+g's own replica first.
 Phase 2: the remaining tokens fill the remaining replica budgets, either in
 (device, replica) order ("greedy", the interval overlap of the two prefix
 sums) or spread over replicas in proportion to their remaining budgets
@@ -25,6 +26,7 @@ def route_tokens(
     input_eg: torch.Tensor,  # int[E, G]
     x_er: torch.Tensor,      # int[E, R] replica budgets (sum_r == sum_g input)
     dev: torch.Tensor,       # int[E, R] replica -> flat device (-1 padding)
+    locality: bool = True,
     sequencing: str = "proportional",
 ) -> RoutingResult:
     """Route per-(expert, source) token counts onto replicas."""
@@ -35,9 +37,12 @@ def route_tokens(
     x_er = torch.where(valid, x_er, torch.zeros_like(x_er)).to(torch.int64)
 
     # phase 1: tokens available on the replica's own device stay there
-    inp_at_replica = torch.gather(input_eg, 1, safe_dev)
-    local = torch.where(valid, torch.minimum(inp_at_replica, x_er),
-                        torch.zeros_like(x_er))
+    if locality:
+        inp_at_replica = torch.gather(input_eg, 1, safe_dev)
+        local = torch.where(valid, torch.minimum(inp_at_replica, x_er),
+                            torch.zeros_like(x_er))
+    else:
+        local = torch.zeros_like(x_er)
 
     rem_x = x_er - local
     # subtract the local share at (e, dev[e, r]); a device hosts at most one

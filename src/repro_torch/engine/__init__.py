@@ -1,5 +1,16 @@
-"""Engine facade and typed configuration."""
-from .config import ConfigError, ServeConfig
+"""Engine facade, typed configuration and the plugin registries."""
+from .config import (ConfigError, DeviceProfile, PlacementSpec,
+                     SchedulePolicy, ServeConfig, profile_slot_budgets,
+                     profile_weights)
+from .registry import (Registry, RegistryError, baseline_systems,
+                       get_baseline_system, get_placement_strategy,
+                       placement_strategies, register_baseline_system,
+                       register_placement_strategy)
 from .engine import MicroEPEngine
 
-__all__ = ["ConfigError", "MicroEPEngine", "ServeConfig"]
+__all__ = ["ConfigError", "DeviceProfile", "MicroEPEngine", "PlacementSpec",
+           "Registry", "RegistryError", "SchedulePolicy", "ServeConfig",
+           "baseline_systems", "get_baseline_system",
+           "get_placement_strategy", "placement_strategies",
+           "profile_slot_budgets", "profile_weights",
+           "register_baseline_system", "register_placement_strategy"]

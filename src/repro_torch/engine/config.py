@@ -1,18 +1,265 @@
-"""Typed configuration the port's single-device serving path reads (the
-port's copy of ``ServeConfig`` from ``repro.engine.config``)."""
+"""Typed configuration of the port's engine and serving path (the port's
+copy of ``PlacementSpec``, ``DeviceProfile``, the device-profile helpers,
+``SchedulePolicy`` and ``ServeConfig`` from ``repro.engine.config``).
+Each validates at construction (errors list the accepted options) and
+round-trips through ``to_dict``/``from_dict``."""
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Optional
+from typing import Any, Mapping, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["ConfigError", "ServeConfig"]
+__all__ = ["ConfigError", "DeviceProfile", "PlacementSpec", "SchedulePolicy",
+           "ServeConfig", "profile_weights", "profile_slot_budgets"]
 
 
 class ConfigError(ValueError):
     """An invalid configuration value (raised at construction)."""
+
+
+_MODES = ("microep", "vanilla")
+_SEQUENCINGS = ("proportional", "greedy")
+_SOLVER_MODES = ("scan", "batched")
+
+
+def _check_choice(kind: str, value, options) -> None:
+    if value not in options:
+        raise ConfigError(
+            f"{kind}={value!r} is not a registered option; "
+            f"choose one of: {', '.join(map(str, options))}")
+
+
+@dataclasses.dataclass(frozen=True)
+class PlacementSpec:
+    """Which strategy builds the expert placement table (paper §6).
+
+    ``strategy`` is a key of ``repro.engine.placement_strategies`` (built-ins:
+    vanilla / random / latin / asymmetric; extend with
+    ``register_placement_strategy``).  ``loads`` feeds load-aware strategies
+    (§6.3) and is stored as a plain tuple so the spec stays hashable and
+    JSON-serializable.
+    """
+
+    strategy: str = "latin"
+    seed: int = 0
+    loads: Optional[Tuple[float, ...]] = None
+
+    def __post_init__(self):
+        if not isinstance(self.strategy, str) or not self.strategy:
+            raise ConfigError(
+                f"PlacementSpec.strategy must be a non-empty string, "
+                f"got {self.strategy!r}")
+        if not isinstance(self.seed, (int, np.integer)):
+            raise ConfigError(
+                f"PlacementSpec.seed must be an int, got {self.seed!r}")
+        if self.loads is not None:
+            object.__setattr__(
+                self, "loads",
+                tuple(float(v) for v in np.asarray(self.loads).ravel()))
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        if d["loads"] is not None:
+            d["loads"] = list(d["loads"])
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "PlacementSpec":
+        return cls(**_known_fields(cls, d))
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceProfile:
+    """Capabilities of one device in a MicroEP group (DESIGN.md §11).
+
+    weight — relative compute throughput.  The weighted LP minimizes the
+             *weighted makespan* max_g load_g / weight_g, so a device with
+             weight 2 is scheduled twice the tokens of a weight-1 device.
+             Only ratios matter; profiles are mean-normalized internally.
+    slots  — expert-replica slot budget (the HBM constraint: how many
+             expert copies this device can hold).  None = no cap beyond
+             the placement's uniform slot count.
+
+    CLI form: one entry per device, comma-separated — ``weight`` or
+    ``weight@slots`` (e.g. ``--device-profiles 2,1,1,1`` or
+    ``2@4,1@2,1@2,1@2``).
+    """
+
+    weight: float = 1.0
+    slots: Optional[int] = None
+
+    def __post_init__(self):
+        try:
+            w = float(self.weight)
+        except (TypeError, ValueError):
+            w = -1.0
+        if not w > 0:
+            raise ConfigError(
+                f"DeviceProfile.weight must be a positive number, "
+                f"got {self.weight!r}")
+        object.__setattr__(self, "weight", w)
+        if self.slots is not None:
+            if not isinstance(self.slots, (int, np.integer)) or self.slots < 1:
+                raise ConfigError(
+                    f"DeviceProfile.slots must be a positive int or None, "
+                    f"got {self.slots!r}")
+            object.__setattr__(self, "slots", int(self.slots))
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "DeviceProfile":
+        return cls(**_known_fields(cls, d))
+
+    # ------------------------------------------------------- CLI strings
+    @classmethod
+    def parse(cls, text: str) -> "DeviceProfile":
+        """``'2'`` or ``'2@4'`` (weight[@slots]) -> DeviceProfile."""
+        text = text.strip()
+        slots = None
+        if "@" in text:
+            w_str, _, s_str = text.partition("@")
+            try:
+                slots = int(s_str)
+            except ValueError:
+                raise ConfigError(
+                    f"device profile {text!r}: slots part {s_str!r} is not "
+                    f"an int (expected 'weight' or 'weight@slots')") from None
+        else:
+            w_str = text
+        try:
+            weight = float(w_str)
+        except ValueError:
+            raise ConfigError(
+                f"device profile {text!r}: weight part {w_str!r} is not a "
+                f"number (expected 'weight' or 'weight@slots')") from None
+        # reject malformed specs here, naming the offending entry — a
+        # zero/negative weight or slot count otherwise surfaces much later
+        # as an opaque LP/placement error
+        if not weight > 0 or not np.isfinite(weight):
+            raise ConfigError(
+                f"device profile {text!r}: weight must be a positive finite "
+                f"number, got {w_str!r}")
+        if slots is not None and slots < 1:
+            raise ConfigError(
+                f"device profile {text!r}: slots must be >= 1 — a zero-slot "
+                f"device cannot host any expert replica (omit '@slots' for "
+                f"an uncapped device)")
+        return cls(weight=weight, slots=slots)
+
+    @classmethod
+    def parse_list(cls, text: str) -> Tuple["DeviceProfile", ...]:
+        """Comma-separated profile list, e.g. ``'2@4,1@2,1@2,1@2'``."""
+        parts = [p for p in text.split(",") if p.strip()]
+        if not parts:
+            raise ConfigError(
+                f"device profile list {text!r} is empty (expected "
+                f"comma-separated 'weight' or 'weight@slots' entries)")
+        return tuple(cls.parse(p) for p in parts)
+
+    def to_cli(self) -> str:
+        w = f"{self.weight:g}"
+        return w if self.slots is None else f"{w}@{self.slots}"
+
+
+def _canonical_profiles(value) -> Optional[Tuple[DeviceProfile, ...]]:
+    """Normalize a device-profile list given as None / CLI string / sequence
+    of DeviceProfile | dict | number."""
+    if value is None:
+        return None
+    if isinstance(value, str):
+        return DeviceProfile.parse_list(value)
+    if isinstance(value, DeviceProfile):
+        raise ConfigError(
+            "device_profiles must be a sequence with one entry per device, "
+            "got a single DeviceProfile")
+    out = []
+    for p in value:
+        if isinstance(p, DeviceProfile):
+            out.append(p)
+        elif isinstance(p, Mapping):
+            out.append(DeviceProfile.from_dict(p))
+        elif isinstance(p, str):
+            out.append(DeviceProfile.parse(p))
+        elif isinstance(p, (int, float, np.integer, np.floating)):
+            out.append(DeviceProfile(weight=float(p)))
+        else:
+            raise ConfigError(
+                f"device profile entries must be DeviceProfile, dict, "
+                f"number, or 'weight[@slots]' string, got {p!r}")
+    if not out:
+        raise ConfigError("device_profiles must not be an empty sequence "
+                          "(use None for a homogeneous fleet)")
+    return tuple(out)
+
+
+def profile_weights(profiles) -> Optional[np.ndarray]:
+    """f64[G] mean-normalized compute weights, or None when the profile is
+    uniform (the homogeneous fast path stays bit-identical to no profile).
+    """
+    if not profiles:
+        return None
+    w = np.asarray([p.weight for p in profiles], np.float64)
+    if np.all(w == w[0]):
+        return None
+    return w / w.mean()
+
+
+def profile_slot_budgets(profiles, default_slots: Optional[int] = None
+                         ) -> Optional[np.ndarray]:
+    """int64[G] per-device expert-slot budgets, or None when no profile
+    constrains slots.  Devices whose profile leaves ``slots=None`` get
+    ``default_slots`` (callers pass the placement's uniform slot count);
+    without a default they inherit the largest specified budget."""
+    if not profiles or all(p.slots is None for p in profiles):
+        return None
+    fallback = (default_slots if default_slots is not None
+                else max(p.slots for p in profiles if p.slots is not None))
+    return np.asarray([p.slots if p.slots is not None else fallback
+                       for p in profiles], np.int64)
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulePolicy:
+    """Per-micro-batch scheduling policy (paper §5).
+
+    mode        — 'microep' (LP solve + rounding + Alg. 1 routing) or
+                  'vanilla' (no freedom; Megatron EP baseline).
+    sweeps      — Gauss-Seidel sweeps of the in-graph water-filling solver.
+    locality    — Alg. 1 locality-aware routing (local replica first).
+    sequencing  — replica fill order inside Alg. 1: 'proportional' | 'greedy'.
+    solver_mode — in-graph LP sweep order: 'scan' (Gauss-Seidel, one
+                  `lax.scan` step per expert) | 'batched' (damped Jacobi,
+                  all experts per sweep in one vectorized step —
+                  bench_hotpath / bench_sched_overhead measure the gap).
+    """
+
+    mode: str = "microep"
+    sweeps: int = 6
+    locality: bool = True
+    sequencing: str = "proportional"
+    solver_mode: str = "scan"
+
+    def __post_init__(self):
+        _check_choice("SchedulePolicy.mode", self.mode, _MODES)
+        _check_choice("SchedulePolicy.sequencing", self.sequencing,
+                      _SEQUENCINGS)
+        _check_choice("SchedulePolicy.solver_mode", self.solver_mode,
+                      _SOLVER_MODES)
+        if not isinstance(self.sweeps, (int, np.integer)) or self.sweeps < 1:
+            raise ConfigError(
+                f"SchedulePolicy.sweeps must be a positive int, "
+                f"got {self.sweeps!r}")
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "SchedulePolicy":
+        return cls(**_known_fields(cls, d))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,3 +309,13 @@ class ServeConfig:
     def from_cli_args(cls, args: argparse.Namespace) -> "ServeConfig":
         return cls(max_batch=args.max_batch, max_seq=args.max_seq,
                    kv_budget=args.kv_budget, eos_token=args.eos_token)
+
+
+def _known_fields(cls, d: Mapping[str, Any]) -> dict:
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(d) - names
+    if unknown:
+        raise ConfigError(
+            f"unknown {cls.__name__} field(s) {sorted(unknown)}; "
+            f"accepted fields: {', '.join(sorted(names))}")
+    return {k: d[k] for k in d}

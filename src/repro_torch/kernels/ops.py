@@ -114,18 +114,33 @@ def wkv6(
 
 
 def schedule(
-    input_eg: torch.Tensor,           # int[E, G] tokens per (expert, source)
+    input_eg: torch.Tensor,           # int[..., E, G] tokens per (expert, source)
     dev: torch.Tensor,                # int64[E, R] replica -> device, -1 pad
     num_devices: int,
-    x_init: Optional[torch.Tensor] = None,   # f32[E, R] warm start
+    x_init: Optional[torch.Tensor] = None,   # f32[..., E, R] warm start
     sequencing: str = "proportional",
     sweeps: int = 6,
+    **options,
 ):
-    """One micro-batch's MicroEP schedule (LPP-1 solve, rounding, Algorithm
-    1 routing, device loads).  -> (x, x_int, flow, max_load, balance); K4
-    on a CUDA tensor, its plain version on a CPU tensor."""
-    if input_eg.device.type == "cpu":
+    """MicroEP schedules (LPP-1 solve, rounding, Algorithm 1 routing,
+    device loads), one per leading index of ``input_eg``.  -> (x, x_int,
+    flow, max_load, balance), each with the leading dims in front; K4 on a
+    CUDA tensor (one launch, a block an instance), its plain version on a
+    CPU tensor.  ``options`` are ``ref.schedule_ref``'s keyword options
+    (``solver_mode``, ``weights``, ``caps``, ``mode``, ``locality``,
+    ``cols``)."""
+    if input_eg.device.type != "cpu":
+        return schedule_cuda(input_eg, dev, num_devices, x_init, sequencing,
+                             sweeps, **options)
+    if input_eg.dim() == 2:
         return ref.schedule_ref(input_eg, dev, num_devices, x_init,
-                                sequencing, sweeps)
-    return schedule_cuda(input_eg, dev, num_devices, x_init, sequencing,
-                         sweeps)
+                                sequencing, sweeps, **options)
+    (n_e, n_g), n_r = input_eg.shape[-2:], dev.shape[1]
+    lead = input_eg.shape[:-2]
+    inits = (None if x_init is None else x_init.reshape(-1, n_e, n_r))
+    outs = [ref.schedule_ref(c, dev, num_devices,
+                             None if inits is None else inits[i],
+                             sequencing, sweeps, **options)
+            for i, c in enumerate(input_eg.reshape(-1, n_e, n_g))]
+    return tuple(torch.stack(o).reshape(lead + o[0].shape)
+                 for o in zip(*outs))

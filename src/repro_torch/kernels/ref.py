@@ -19,7 +19,8 @@ import torch.nn.functional as F
 
 from ..core.rounding import round_replica_loads
 from ..core.routing import route_tokens
-from ..core.solver import device_loads, solve_replica_loads
+from ..core.solver import (device_loads, solve_replica_loads,
+                           solve_replica_loads_batched)
 
 __all__ = ["schedule_ref", "grouped_ffn_ref", "grouped_ffn_flat_ref",
            "grouped_ffn_flat_bwd_ref", "grouped_ffn_flat_bwd_3xtf32_ref",
@@ -498,18 +499,46 @@ def schedule_ref(
     x_init: Optional[torch.Tensor] = None,   # f32[E, R] warm start
     sequencing: str = "proportional",
     sweeps: int = 6,
+    *,
+    solver_mode: str = "scan",
+    weights: Optional[torch.Tensor] = None,  # f32[G] device weights
+    caps: Optional[torch.Tensor] = None,     # f32[G] memory token caps
+    mode: str = "microep",
+    locality: bool = True,
+    cols: int = 1,
 ):
-    """One micro-batch's MicroEP schedule: the LPP-1 solve by Gauss-Seidel
-    water-filling, largest-remainder rounding, Algorithm 1 routing and the
-    resulting device loads.  -> (x f32[E, R] solver iterate, x_int
-    int64[E, R], flow int64[E, G, R], max_load f32[], balance f32[])."""
+    """One micro-batch's MicroEP schedule: the LPP-1 solve (``sweeps``
+    Gauss-Seidel sweeps, or damped-Jacobi ones with ``solver_mode=
+    "batched"``; weighted and memory-capped when ``weights`` and ``caps``
+    are given), largest-remainder rounding, Algorithm 1 routing (no local
+    phase with ``locality=False``) and the resulting device loads.  In
+    ``mode="vanilla"`` (Megatron EP) every token goes to the replicas on its
+    own row of ``cols`` devices instead, and x is the warm start (or
+    zeros).  -> (x f32[E, R] solver iterate, x_int int64[E, R], flow
+    int64[E, G, R], max_load f32[], balance f32[]: the largest device load,
+    over its weight when ``weights`` is given, over the mean load)."""
     valid = dev >= 0
     loads = input_eg.sum(1)
-    x = solve_replica_loads(loads.to(torch.float32), dev, num_devices,
-                            x_init=x_init, sweeps=sweeps).x
-    x_int = round_replica_loads(x, loads, valid)
-    flow = route_tokens(input_eg, x_int, dev, sequencing=sequencing).flow
+    if mode == "vanilla":
+        rep_row = torch.where(valid, dev // cols, torch.full_like(dev, -1))
+        src_row = torch.arange(num_devices, device=dev.device) // cols
+        same_row = rep_row[:, None, :] == src_row[None, :, None]
+        flow = torch.where(same_row, input_eg[:, :, None].to(torch.int64),
+                           torch.zeros((), dtype=torch.int64,
+                                       device=dev.device))
+        x_int = flow.sum(1)
+        x = (torch.zeros(dev.shape, dtype=torch.float32, device=dev.device)
+             if x_init is None else x_init.clone())
+    else:
+        solve = (solve_replica_loads_batched if solver_mode == "batched"
+                 else solve_replica_loads)
+        x = solve(loads.to(torch.float32), dev, num_devices, x_init=x_init,
+                  sweeps=sweeps, weights=weights, mem_caps=caps).x
+        x_int = round_replica_loads(x, loads, valid)
+        flow = route_tokens(input_eg, x_int, dev, locality=locality,
+                            sequencing=sequencing).flow
     dl = device_loads(x_int.to(torch.float32), dev, num_devices)
     max_load = dl.max()
-    return x, x_int, flow, max_load, max_load / torch.clamp(dl.mean(),
-                                                            min=1e-9)
+    dl_norm = dl if weights is None else dl / weights
+    return x, x_int, flow, max_load, dl_norm.max() / torch.clamp(dl.mean(),
+                                                                 min=1e-9)

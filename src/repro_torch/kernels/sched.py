@@ -1,14 +1,16 @@
 """Build and bind K4, the hand-written CUDA MicroEP scheduler
 (``csrc/microep_sched.cu``).
 
-K4 has no Pallas counterpart: it replaces the reference's in-graph solver
-(``repro.core.solver_jax.solve_replica_loads``, a ``lax.scan`` of E x sweeps
-water-fills inside the compiled step) together with its rounding
-(``repro.core.rounding``) and Algorithm 1 routing (``repro.core.routing``),
-which the port would otherwise run as tens of thousands of small eager
-launches a decode step.  One launch of one block computes what
-``ref.schedule_ref`` computes, with every f32 sum in the same order, so
-the integer outputs are equal and the floats equal bit for bit.
+K4 has no Pallas counterpart: it replaces the reference's in-graph
+scheduler (``repro.core.scheduler``): the LPP-1 solve by Gauss-Seidel
+(``repro.core.solver_jax.solve_replica_loads``, a ``lax.scan`` of E x
+sweeps water-fills) or damped Jacobi (``solve_replica_loads_batched``),
+weighted and memory-capped, its rounding (``repro.core.rounding``) and
+Algorithm 1 routing (``repro.core.routing``), or the vanilla same-row
+mask; the port would otherwise run them as tens of thousands of small
+eager launches a decode step.  One launch, one block an instance, computes
+what ``ref.schedule_ref`` computes, with every f32 sum in the same order,
+so the integer outputs are equal and the floats equal bit for bit.
 
 ``schedule_cuda`` allocates its outputs through torch on the input's
 device, launches on PyTorch's current stream and never synchronises.  The
@@ -25,11 +27,14 @@ import torch
 from .build import CSRC, build_library
 
 __all__ = ["bind", "build", "check_sizes", "schedule_cuda", "MAX_EXPERTS",
-           "MAX_DEVICES", "MAX_REPLICAS", "SEQUENCING"]
+           "MAX_DEVICES", "MAX_REPLICAS", "SEQUENCING", "SOLVER_MODES",
+           "MODES"]
 
 _SRC = CSRC / "microep_sched.cu"
 MAX_EXPERTS, MAX_DEVICES, MAX_REPLICAS = 256, 64, 32
 SEQUENCING = {"proportional": 0, "greedy": 1}
+SOLVER_MODES = {"scan": 0, "batched": 1}
+MODES = {"microep": 0, "vanilla": 1}
 
 _lib = None  # the loaded library, bound once per process
 
@@ -44,7 +49,7 @@ def bind(path):
     """Load a built K4 library and declare its C entry ``microep_schedule``."""
     lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.microep_schedule.argtypes = [vp] * 7 + [ci] * 5 + [vp]
+    lib.microep_schedule.argtypes = [vp] * 9 + [ci] * 10 + [vp]
     lib.microep_schedule.restype = ci
     return lib
 
@@ -67,67 +72,100 @@ def check_sizes(num_experts: int, num_devices: int, num_replicas: int):
             raise ValueError(f"K4 takes 1 to {top} {name}, got {n}")
 
 
+def _check_option(what: str, value, options) -> None:
+    if value not in options:
+        raise ValueError(f"{what}={value!r} is not a registered option; "
+                         f"choose one of: {', '.join(options)}")
+
+
 def schedule_cuda(
-    input_eg: torch.Tensor,          # int64 [E, G]
+    input_eg: torch.Tensor,          # int64 [..., E, G]
     dev: torch.Tensor,               # int64 [E, R], -1 padding
     num_devices: int,
-    x_init: Optional[torch.Tensor] = None,   # f32 [E, R] warm start
+    x_init: Optional[torch.Tensor] = None,   # f32 [..., E, R] warm start
     sequencing: str = "proportional",
     sweeps: int = 6,
+    *,
+    solver_mode: str = "scan",
+    weights: Optional[torch.Tensor] = None,  # f32 [G] device weights
+    caps: Optional[torch.Tensor] = None,     # f32 [G] memory token caps
+    mode: str = "microep",
+    locality: bool = True,
+    cols: int = 1,
 ):
-    """K4: one MicroEP schedule on the tensors' CUDA device, one launch.
-    -> (x, x_int, flow, max_load, balance) as ``ref.schedule_ref``.
+    """K4: MicroEP schedules on the tensors' CUDA device, one launch, one
+    block for each leading index of ``input_eg``.  -> (x, x_int, flow,
+    max_load, balance) as ``ref.schedule_ref`` gives them for each
+    instance, the leading dims in front.
 
     ``dev`` must place at most one replica of an expert on a device, each
     in ``[0, num_devices)``.  Raises on anything the kernel does not take,
     the sizes first (before anything is built): a group past the limits of
-    :func:`check_sizes`, an unknown sequencing, a non-CUDA tensor or mixed
+    :func:`check_sizes`, an unknown option, a non-CUDA tensor or mixed
     devices, wrong types, shapes or strides, or a launch the CUDA runtime
     refuses."""
     n_e, n_r = dev.shape
     check_sizes(n_e, num_devices, n_r)
-    if sequencing not in SEQUENCING:
-        raise ValueError(f"sequencing={sequencing!r} is not a registered "
-                         f"option; choose one of: {', '.join(SEQUENCING)}")
+    _check_option("sequencing", sequencing, SEQUENCING)
+    _check_option("solver_mode", solver_mode, SOLVER_MODES)
+    _check_option("mode", mode, MODES)
     if sweeps < 0:
         raise ValueError(f"sweeps must be >= 0, got {sweeps}")
-    tensors = [input_eg, dev] + ([] if x_init is None else [x_init])
+    if cols < 1:
+        raise ValueError(f"cols must be >= 1, got {cols}")
+    lead = tuple(input_eg.shape[:-2])
+    floats = [t for t in (x_init, weights, caps) if t is not None]
+    tensors = [input_eg, dev] + floats
     if input_eg.device.type != "cuda" or any(t.device != input_eg.device
                                              for t in tensors):
         raise ValueError(f"K4 needs every tensor on one CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
-    if input_eg.dtype != torch.int64 or dev.dtype != torch.int64 or (
-            x_init is not None and x_init.dtype != torch.float32):
-        raise TypeError(f"K4 takes int64 counts and dev and a "
-                        f"float32 warm start, got {input_eg.dtype}, "
-                        f"{dev.dtype}, "
-                        f"{None if x_init is None else x_init.dtype}")
-    if input_eg.shape != (n_e, num_devices) or (
-            x_init is not None and x_init.shape != (n_e, n_r)):
+    if input_eg.dtype != torch.int64 or dev.dtype != torch.int64 or any(
+            t.dtype != torch.float32 for t in floats):
+        raise TypeError(f"K4 takes int64 counts and dev and float32 warm "
+                        f"start, weights and caps, got "
+                        f"{[t.dtype for t in tensors]}")
+    if (input_eg.dim() < 2 or tuple(input_eg.shape[-2:]) != (n_e, num_devices)
+            or (x_init is not None and tuple(x_init.shape) != lead + (n_e,
+                                                                      n_r))
+            or any(t is not None and tuple(t.shape) != (num_devices,)
+                   for t in (weights, caps))):
         raise ValueError(
             f"bad K4 shapes: counts {tuple(input_eg.shape)}, dev "
             f"{tuple(dev.shape)}, warm start "
-            f"{None if x_init is None else tuple(x_init.shape)} for "
+            f"{None if x_init is None else tuple(x_init.shape)}, weights "
+            f"{None if weights is None else tuple(weights.shape)}, caps "
+            f"{None if caps is None else tuple(caps.shape)} for "
             f"{num_devices} devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("K4 takes contiguous tensors only")
+    batch = 1
+    for n in lead:
+        batch *= n
+    if batch < 1:
+        raise ValueError(f"K4 needs at least one instance, got leading "
+                         f"dims {lead}")
     lib = _load()
     device = input_eg.device
-    x = torch.empty((n_e, n_r), dtype=torch.float32, device=device)
-    x_int = torch.empty((n_e, n_r), dtype=torch.int64, device=device)
-    flow = torch.empty((n_e, num_devices, n_r), dtype=torch.int64,
+    x = torch.empty(lead + (n_e, n_r), dtype=torch.float32, device=device)
+    x_int = torch.empty(lead + (n_e, n_r), dtype=torch.int64, device=device)
+    flow = torch.empty(lead + (n_e, num_devices, n_r), dtype=torch.int64,
                        device=device)
-    stats = torch.empty(2, dtype=torch.float32, device=device)
+    stats = torch.empty(lead + (2,), dtype=torch.float32, device=device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.microep_schedule(
-        input_eg.data_ptr(), dev.data_ptr(),
-        None if x_init is None else x_init.data_ptr(), x.data_ptr(),
-        x_int.data_ptr(), flow.data_ptr(), stats.data_ptr(),
-        n_e, num_devices, n_r, sweeps, SEQUENCING[sequencing], stream)
+        input_eg.data_ptr(), dev.data_ptr(), ptr(x_init), ptr(weights),
+        ptr(caps), x.data_ptr(), x_int.data_ptr(), flow.data_ptr(),
+        stats.data_ptr(), batch, n_e, num_devices, n_r, sweeps,
+        SEQUENCING[sequencing], SOLVER_MODES[solver_mode], MODES[mode],
+        int(bool(locality)), cols, stream)
     if rc != 0:
         raise RuntimeError(f"K4 launch failed: CUDA error {rc}")
     schedule_cuda.launches += 1
-    return x, x_int, flow, stats[0], stats[1]
+    return x, x_int, flow, stats[..., 0], stats[..., 1]
 
 
 schedule_cuda.launches = 0   # kernel launches since the last reset

@@ -1,6 +1,8 @@
 """K4, the MicroEP scheduler kernel, against its plain version on the card.
 
-  PYTHONPATH=src python -m repro_torch.launch.time_k4
+  PYTHONPATH=src python -m repro_torch.launch.time_k4 [--solver-mode
+      batched] [--mode vanilla] [--no-locality] [--profiles 2,1]
+      [--mem-caps 1.05] [--scheduler-core]
 
 For every case of ``CASES`` (a placement and token counts drawn with numpy
 from a seed), ``measure`` runs K4 and its plain version
@@ -13,11 +15,25 @@ wrapper's host work does not pace them, and its time paced by that host
 work; the plain version, a chain of small launches, over 3 calls.  Prints
 the times beside the bound (bytes ÷ 3.35 TB/s against operations ÷ 67
 TFLOP/s) and the card.  ``chip_smoke.py`` phase 10 runs the same cases.
-Needs a CUDA device.
+The flags run the cases with K4's other options: the damped-Jacobi solver
+(2 × the sweeps, as the scheduler runs it), the vanilla mode, routing
+without its local phase, device weights (a profile list cycled over the
+devices) and memory caps (a factor of the first micro-batch's mean device
+load, on every device).
+
+``--scheduler-core`` runs ``chip_smoke.py`` phase 16 alone: the scheduler
+core through ``MicroEPEngine.build(...).schedule`` on the card, each
+schedule equal bit for bit to the CPU's plain version: Fig. 7's group
+(``fig7``: every placement, vanilla mode, the five baselines and HiGHS's
+optimum), olmoe-1b-7b's experts on a 4 × 4 latin group in every option
+(``olmoe_group``) and Fig. 9's grid of K4 times (``fig9``).  Needs a CUDA
+device.
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -100,15 +116,25 @@ def case(spec, device, seed: int = 0):
             sequencing, batches)
 
 
-def run_both(dev, num_devices, sequencing, batches, warm: bool = True):
+def sweeps_of(options) -> int:
+    """The solver sweeps the scheduler runs: 2 × ``SWEEPS`` for Jacobi."""
+    return (2 * SWEEPS if options and options.get("solver_mode") == "batched"
+            else SWEEPS)
+
+
+def run_both(dev, num_devices, sequencing, batches, warm: bool = True,
+             options=None):
     """K4 and the plain version on the card, micro-batch after micro-batch,
-    each carrying its own warm start (or each from a cold start)."""
+    each carrying its own warm start (or each from a cold start);
+    ``options`` are K4's keyword options."""
     pairs, x_k4, x_ref = [], None, None
+    options = options or {}
+    sweeps = sweeps_of(options)
     for input_eg in batches:
         got = ops.schedule(input_eg, dev, num_devices, x_k4, sequencing,
-                           SWEEPS)
+                           sweeps, **options)
         expect = ref.schedule_ref(input_eg, dev, num_devices, x_ref,
-                                  sequencing, SWEEPS)
+                                  sequencing, sweeps, **options)
         pairs.append((got, expect))
         if warm:
             x_k4, x_ref = got[0], expect[0]
@@ -177,28 +203,38 @@ def cuda_ms(fn, reps: int, queued: bool = False) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def time_case(dev, num_devices, sequencing, input_eg, x_init) -> dict:
+def time_case(dev, num_devices, sequencing, input_eg, x_init,
+              options=None) -> dict:
     """K4's device time, K4's time paced by its host work, and the plain
     version's time (ms) on one micro-batch."""
+    options = options or {}
+    sweeps = sweeps_of(options)
+
     def k4():
-        ops.schedule(input_eg, dev, num_devices, x_init, sequencing, SWEEPS)
+        ops.schedule(input_eg, dev, num_devices, x_init, sequencing, sweeps,
+                     **options)
     return {"k4": cuda_ms(k4, REPS, queued=True),
             "k4_paced": cuda_ms(k4, REPS),
             "plain": cuda_ms(lambda: ref.schedule_ref(
-                input_eg, dev, num_devices, x_init, sequencing, SWEEPS), 3)}
+                input_eg, dev, num_devices, x_init, sequencing, sweeps,
+                **options), 3)}
 
 
-def measure(name: str, device, timed: bool = True) -> dict:
+def measure(name: str, device, timed: bool = True,
+            options=lambda name, n_g, batches: {}) -> dict:
     """Check K4 against its plain version on ``CASES[name]`` over three
     warm-started and three cold micro-batches (``check_outputs``; raises
     ``AssertionError`` naming the micro-batch), then, if ``timed``, time
     both at the last micro-batch with the warm start of the one before.
+    ``options(name, num_devices, batches)`` gives K4's keyword options.
     -> {"shape": (E, G, R), "sequencing", "err": x's max abs error,
     "k4", "k4_paced", "plain" (ms), "bound": ``k4_bound``'s tuple}."""
     dev, n_g, seq, batches = case(name, device)
+    opts = options(name, n_g, batches)
     errs = []
     for warm in (True, False):
-        for i, pair in enumerate(run_both(dev, n_g, seq, batches, warm)):
+        for i, pair in enumerate(run_both(dev, n_g, seq, batches, warm,
+                                          opts)):
             try:
                 errs.append(check_outputs(*pair))
             except AssertionError as exc:
@@ -206,36 +242,379 @@ def measure(name: str, device, timed: bool = True) -> dict:
                     f"K4 {name}, {'warm' if warm else 'cold'} micro-batch "
                     f"{i}: {exc}") from exc
     out = {"shape": (dev.shape[0], n_g, dev.shape[1]), "sequencing": seq,
-           "err": max(errs)}
+           "err": max(errs), "sweeps": sweeps_of(opts)}
     if timed:
-        x_warm = run_both(dev, n_g, seq, batches[:2])[-1][0][0]
-        out.update(time_case(dev, n_g, seq, batches[-1], x_warm))
-        out["bound"] = k4_bound(batches[-1], dev, warm=True)
+        x_warm = run_both(dev, n_g, seq, batches[:2], options=opts)[-1][0][0]
+        out.update(time_case(dev, n_g, seq, batches[-1], x_warm, opts))
+        out["bound"] = k4_bound(batches[-1], dev, warm=True,
+                                sweeps=sweeps_of(opts))
     return out
 
 
-def describe(name: str, m: dict) -> str:
+def chain(n_e: int, options: dict, sweeps: int) -> str:
+    """K4's dependent chain under ``options``."""
+    solves = 2 if options.get("caps") is not None else 1
+    if options.get("mode") == "vanilla":
+        return "no solver chain (the same-row mask)"
+    if options.get("solver_mode") == "batched":
+        return (f"{solves * sweeps} block-wide Jacobi sweeps"
+                + (" and 8 projection passes" if solves == 2 else ""))
+    return (f"{solves * n_e * sweeps} dependent water-fill steps"
+            + (" and 8 projection passes" if solves == 2 else ""))
+
+
+def describe(name: str, m: dict, options=None) -> str:
     """One line of ``measure``'s result."""
     (n_e, n_g, n_r), seq = m["shape"], m["sequencing"]
-    line = (f"K4 {name} (E {n_e}, G {n_g}, R {n_r}, {seq}): x_int, flow, "
-            f"max_load equal over 3 warm and 3 cold micro-batches, x max "
-            f"abs err {m['err']:.3e} (tol {TOL_X})")
+    label = ", ".join(f"{k} on" if k in ("weights", "caps") else f"{k} {v}"
+                      for k, v in (options or {}).items() if k != "cols")
+    line = (f"K4 {name} (E {n_e}, G {n_g}, R {n_r}, {seq}"
+            f"{', ' + label if label else ''}): x_int, flow, max_load equal "
+            f"over 3 warm and 3 cold micro-batches, x max abs err "
+            f"{m['err']:.3e} (tol {TOL_X})")
     if "k4" in m:
         bound_ms, by, nbytes, flops = m["bound"]
         line += (f"; K4 {m['k4']:.4f} ms (mean of {REPS} queued launches; "
                  f"{m['k4_paced']:.4f} ms paced by the wrapper's host "
                  f"work), plain version {m['plain']:.4f} ms, bound "
                  f"{bound_ms:.6f} ms ({by}: {nbytes} B moved, {flops:.0f} "
-                 f"f32 operations); the chain is {n_e * SWEEPS} dependent "
-                 f"water-fill steps")
+                 f"f32 operations); the chain is "
+                 f"{chain(n_e, options or {}, m['sweeps'])}")
     return line
 
 
-def main() -> int:
+# ----------------------------------------- the scheduler core (phase 16)
+
+def zipf_input(rng, e: int, g: int, tokens_per_dev: int, s: float):
+    """int32[E, G] per-(expert, source) counts with Zipf(s) popularity,
+    independently sampled per source device (micro-batch heterogeneity):
+    the benchmarks' sampler."""
+    ranks = np.arange(1, e + 1, dtype=np.float64)
+    p = ranks ** -s
+    p /= p.sum()
+    perm = rng.permutation(e)
+    out = np.zeros((e, g), np.int64)
+    for gi in range(g):
+        out[perm, gi] = rng.multinomial(tokens_per_dev, p)
+    return out.astype(np.int32)
+
+
+def zipf_micro_batches(rng, e: int, g: int, tokens_per_dev: int, s: float,
+                       n: int) -> list:
+    """``n`` int64 [E, G] micro-batches, each a ``zipf_input`` draw with its
+    experts relabelled by load rank to the first's, so that the hot experts
+    stay hot from one micro-batch to the next (the regime the warm start
+    is for)."""
+    out = []
+    for _ in range(n):
+        c = zipf_input(rng, e, g, tokens_per_dev, s).astype(np.int64)
+        if out:
+            order0 = np.argsort(-out[0].sum(1), kind="stable")
+            relabel = np.empty_like(c)
+            relabel[order0] = c[np.argsort(-c.sum(1), kind="stable")]
+            c = relabel
+        out.append(c)
+    return [torch.tensor(c) for c in out]
+
+
+# Fig. 7's group (benchmarks/bench_balance.py): 2 x 4 devices, 32 experts,
+# 2048 tokens a device, Zipf skews
+FIG7_GRID, FIG7_EXPERTS, FIG7_TOKENS, FIG7_SKEWS = (2, 4), 32, 2048, \
+    (0.0, 0.8, 1.6)
+# Fig. 9's grid (benchmarks/bench_sched_overhead.py): (G, E), 2 rows
+FIG9 = ((8, 32), (8, 64), (16, 64), (16, 128), (32, 128), (64, 256))
+# olmoe-1b-7b's 64 experts on a 4 x 4 latin group, Zipf(1.2) counts of 2048
+# tokens a device (the sampler of benchmarks/bench_hotpath.py's solver
+# rows; at Zipf(1.0) this group's optimum is the mean load)
+OLMOE_GRID, OLMOE_TOKENS, OLMOE_SKEW = (4, 4), 2048, 1.2
+CAP_OVER_LP = 1.01   # the caps' level over HiGHS's optimum
+MICRO_BATCHES = 3
+LP_SWEEPS = 30   # Gauss-Seidel sweeps held to HiGHS, as tests/test_lp_solver.py
+
+
+def engines(num_experts: int, grid, **build):
+    """The same engine on the card and on the CPU."""
+    from ..engine import MicroEPEngine
+    return (MicroEPEngine.build(num_experts, grid, device="cuda", **build),
+            MicroEPEngine.build(num_experts, grid, device="cpu", **build))
+
+
+def check_engines(card, cpu, batches, warm: bool, label: str):
+    """Schedule ``batches`` (int64 CPU tensors) on the card (K4) and on the
+    CPU (the plain version), carrying each one's warm start or from cold
+    starts; raise ``AssertionError`` unless every output is equal bit for
+    bit.  -> the card's schedules."""
+    out, st_card, st_cpu = [], None, None
+    for i, counts in enumerate(batches):
+        a = card.schedule(counts.cuda(), st_card)
+        b = cpu.schedule(counts, st_cpu)
+        for what, u, v in (("x", a.solver_state.x, b.solver_state.x),
+                           ("x_int", a.x_int, b.x_int),
+                           ("flow", a.flow, b.flow),
+                           ("max_load", a.max_load, b.max_load),
+                           ("balance", a.balance, b.balance)):
+            if not torch.equal(u.cpu(), v):
+                raise AssertionError(
+                    f"{label}, {'warm' if warm else 'cold'} micro-batch {i}: "
+                    f"K4's {what} differs from the plain version's by "
+                    f"{(u.cpu().double() - v.double()).abs().max().item():.3e}")
+        out.append(a)
+        if warm:
+            st_card, st_cpu = a.solver_state, b.solver_state
+    return out
+
+
+def lp_max_load(eng, counts, mem_budgets=None) -> float:
+    """HiGHS's optimal max device load for ``counts`` on ``eng``'s group."""
+    from ..core.lp import solve_lpp1
+    loads = np.asarray(counts).sum(axis=1)
+    st = eng.statics
+    return solve_lpp1(loads, st.dev, st.num_devices, weights=st.weights,
+                      mem_budgets=mem_budgets).max_load
+
+
+def fig7(seed: int = 0) -> list:
+    """Fig. 7's balance table, as ``benchmarks/bench_balance.py`` draws it:
+    for each skew, ``MICRO_BATCHES`` Zipf micro-batches, each with a stale
+    history (its loads × U(0.8, 1.25)); MicroEP (Gauss-Seidel) on the
+    random, latin and asymmetric placements (asymmetric built from the
+    history), with ``LP_SWEEPS`` sweeps, Jacobi on latin at the policy's
+    default, vanilla mode and the five baselines, each
+    max load over the ideal (mean over the micro-batches) beside HiGHS's
+    optimum for each placement.  Every schedule is checked on the card
+    against the CPU from a cold start, and over the micro-batches with the
+    warm start carried; each cold Gauss-Seidel schedule must sit at or
+    below 1.01 × the optimum + 1 token and at or below Megatron's.
+    -> rows of {"skew", system: max load / ideal, "lp_" + system:
+    optimum / ideal}."""
+    from ..engine import PlacementSpec, SchedulePolicy
+    from ..moe.baselines import baseline_max_load
+    rows, g = [], FIG7_GRID[0] * FIG7_GRID[1]
+    fixed = (("microep-random", "random", SchedulePolicy(sweeps=LP_SWEEPS)),
+             ("microep-latin", "latin", SchedulePolicy(sweeps=LP_SWEEPS)),
+             ("microep-latin-jacobi", "latin",
+              SchedulePolicy(solver_mode="batched")),
+             ("vanilla", "vanilla", SchedulePolicy(mode="vanilla")))
+    for skew in FIG7_SKEWS:
+        rng = np.random.default_rng(seed)
+        acc: dict = {}
+        batches = []
+        for _ in range(MICRO_BATCHES):
+            counts = torch.tensor(zipf_input(rng, FIG7_EXPERTS, g,
+                                             FIG7_TOKENS, skew),
+                                  dtype=torch.int64)
+            loads = counts.sum(1).double().numpy()
+            hist = loads * rng.uniform(0.8, 1.25, size=FIG7_EXPERTS)
+            batches.append(counts)
+            ideal = loads.sum() / g
+            for name in ("megatron", "deepspeed", "gshard", "smartmoe",
+                         "flexmoe"):
+                m, _ = baseline_max_load(name, loads, g, FIG7_EXPERTS // g,
+                                         hist=hist)
+                acc.setdefault(name, []).append(m / ideal)
+            asym = ("microep-asymmetric",
+                    PlacementSpec("asymmetric", loads=tuple(hist)),
+                    SchedulePolicy(sweeps=LP_SWEEPS))
+            for label, placement, policy in fixed + (asym,):
+                card, cpu = engines(FIG7_EXPERTS, FIG7_GRID,
+                                    placement=placement, policy=policy)
+                got = float(check_engines(card, cpu, [counts], False,
+                                          f"fig7 {label} s{skew}")[0]
+                            .max_load)
+                acc.setdefault(label, []).append(got / ideal)
+                if policy.mode == "vanilla" or policy.solver_mode != "scan":
+                    continue
+                opt = lp_max_load(cpu, counts)
+                acc.setdefault("lp_" + label, []).append(opt / ideal)
+                megatron = acc["megatron"][-1] * ideal
+                if not (got <= 1.01 * opt + 1 and got <= megatron):
+                    raise AssertionError(
+                        f"fig7 s{skew} {label}: max load {got} above 1.01 "
+                        f"× HiGHS's {opt:.2f} + 1 or Megatron's "
+                        f"{megatron:.2f}")
+        for label, placement, policy in fixed:     # the warm start carried
+            card, cpu = engines(FIG7_EXPERTS, FIG7_GRID,
+                                placement=placement, policy=policy)
+            check_engines(card, cpu, batches, True, f"fig7 {label} s{skew}")
+        rows.append({"skew": skew, **{k: float(np.mean(v))
+                                      for k, v in acc.items()}})
+    return rows
+
+
+def olmoe_group(seed: int = 0) -> list:
+    """olmoe-1b-7b's 64 experts on a 4 × 4 latin group, MICRO_BATCHES
+    micro-batches (``zipf_micro_batches``): Gauss-Seidel and Jacobi, routing without locality, a
+    heterogeneous profile (weight 2 on the first 8 devices, 1 on the
+    others) and MemFine caps from ``memory_plan`` of
+    ``MemoryModel.from_arch(olmoe-1b-7b)`` (f32) at the per-device byte
+    budget whose caps sit ``CAP_OVER_LP`` × HiGHS's optimum: feasible, and
+    below the uncapped Jacobi iterate's loads.  Each checked
+    on the card against the CPU, warm and cold.  -> rows of {"variant",
+    "max_load", "lp", "gap": warm max load / HiGHS's optimum - 1}."""
+    from ..configs import get_config
+    from ..core.memory import MemoryModel
+    from ..engine import SchedulePolicy
+    cfg = get_config("olmoe-1b-7b")
+    g = OLMOE_GRID[0] * OLMOE_GRID[1]
+    batches = zipf_micro_batches(np.random.default_rng(seed),
+                                 cfg.num_experts, g, OLMOE_TOKENS, OLMOE_SKEW,
+                                 MICRO_BATCHES)
+    base, _ = engines(cfg.num_experts, OLMOE_GRID, placement="latin")
+    opt = lp_max_load(base, batches[-1])
+    model = MemoryModel.from_arch(cfg, bytes_per_el=4)
+    # the byte budget whose one-chunk caps sit CAP_OVER_LP x the optimum
+    slope = (model.dispatch_bytes_per_token + model.act_bytes_per_token
+             + model.store_bytes_per_token)
+    budget = slope * CAP_OVER_LP * opt + model.act_bytes_per_token
+    base.install_memory(model, budget)
+    plan = base.memory_plan(OLMOE_TOKENS, 1)
+    caps = np.asarray(plan.token_caps, np.float64)
+    profile = "2," * (g // 2) + "1," * (g // 2)
+    variants = (
+        ("gauss-seidel", dict(policy=SchedulePolicy())),
+        ("jacobi", dict(policy=SchedulePolicy(solver_mode="batched"))),
+        ("no-locality", dict(policy=SchedulePolicy(locality=False))),
+        ("weighted", dict(policy=SchedulePolicy(), device_profiles=profile)),
+        ("weighted-jacobi", dict(policy=SchedulePolicy(
+            solver_mode="batched"), device_profiles=profile)),
+        ("capped", dict(policy=SchedulePolicy(), mem_caps=caps)),
+        ("capped-jacobi", dict(policy=SchedulePolicy(solver_mode="batched"),
+                               mem_caps=caps)))
+    rows = []
+    for label, build in variants:
+        card, cpu = engines(cfg.num_experts, OLMOE_GRID, placement="latin",
+                            **build)
+        check_engines(card, cpu, batches, False, f"olmoe {label}")
+        warm = check_engines(card, cpu, batches, True, f"olmoe {label}")
+        lp = lp_max_load(cpu, batches[-1],
+                         caps if "mem_caps" in build else None)
+        got = float(warm[-1].max_load)
+        rows.append({"variant": label, "max_load": got, "lp": lp,
+                     "gap": got / lp - 1, "balance": float(warm[-1].balance),
+                     "caps": (caps.min(), caps.max()) if "mem_caps" in build
+                     else None, "chunks": plan.chunks})
+    return rows
+
+
+def fig9(seed: int = 0) -> list:
+    """Fig. 9's grid: K4 at each (G, E) of ``FIG9`` on a 2-row latin group
+    (2 replicas an expert), Zipf(1.0) counts of 2048 tokens a device, both
+    solver orders, cold and warm (the warm start of the micro-batch
+    before); each checked on the card against the CPU, then K4's device
+    time (``REPS`` launches queued behind a spin kernel).  -> rows of
+    {"G", "E", "scan_cold", "scan_warm", "batched_cold", "batched_warm",
+    "no_solve": K4 with 0 sweeps} (ms)."""
+    from ..engine import SchedulePolicy
+    rows = []
+    for g, e in FIG9:
+        batches = zipf_micro_batches(np.random.default_rng(seed), e, g, 2048,
+                                     1.0, 2)
+        row = {"G": g, "E": e}
+        for solver in ("scan", "batched"):
+            card, cpu = engines(e, (2, g // 2), placement="latin",
+                                policy=SchedulePolicy(solver_mode=solver))
+            check_engines(card, cpu, batches[:1], False, f"fig9 {g}x{e}")
+            warm = check_engines(card, cpu, batches, True, f"fig9 {g}x{e}")
+            counts = batches[-1].cuda()
+            for phase, state in (("cold", None),
+                                 ("warm", warm[0].solver_state)):
+                row[f"{solver}_{phase}"] = cuda_ms(
+                    lambda: card.schedule(counts, state), REPS, queued=True)
+        # K4 with no sweep: set-up, rounding, routing and the loads
+        dev = card.scheduler.dev
+        row["no_solve"] = cuda_ms(lambda: ops.schedule(
+            counts, dev, g, None, "proportional", 0), REPS, queued=True)
+        rows.append(row)
+    return rows
+
+
+def scheduler_core() -> None:
+    """Phase 16 of ``chip_smoke.py``: ``fig7``, ``olmoe_group`` and
+    ``fig9``, printed.  Raises ``AssertionError`` on any failed check."""
+    t0 = time.perf_counter()
+    print("  (a) Fig. 7's group, 2 x 4 devices, 32 experts, 2048 tokens a "
+          f"device: max load / ideal, mean of {MICRO_BATCHES} cold "
+          "micro-batches; every schedule equal to the CPU's, cold and "
+          "warm")
+    for row in fig7():
+        print(f"    s {row['skew']}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in row.items()
+            if k != "skew"))
+    print("  (b) olmoe-1b-7b's 64 experts on a 4 x 4 latin group "
+          f"(Zipf({OLMOE_SKEW}) counts of {OLMOE_TOKENS} tokens a device): "
+          f"warm max load (last of {MICRO_BATCHES}) against HiGHS's "
+          "optimum")
+    for row in olmoe_group():
+        caps = row["caps"]
+        print(f"    {row['variant']}: max load {row['max_load']:.1f}, "
+              f"HiGHS {row['lp']:.2f}, gap {100 * row['gap']:+.3f}%, "
+              f"balance {row['balance']:.4f}"
+              + (f"; caps {caps[0]:.0f}-{caps[1]:.0f} tokens "
+                 f"({row['chunks']} chunk)" if caps else ""))
+    print(f"  (c) Fig. 9's grid, K4 device time (ms, {REPS} launches "
+          "queued behind a spin kernel), 2-row latin groups")
+    for row in fig9():
+        print(f"    G {row['G']}, E {row['E']}: Gauss-Seidel cold "
+              f"{row['scan_cold']:.4f}, warm {row['scan_warm']:.4f}; "
+              f"Jacobi cold {row['batched_cold']:.4f}, warm "
+              f"{row['batched_warm']:.4f}; with no sweep "
+              f"{row['no_solve']:.4f}")
+    print(f"  scheduler core checked in {time.perf_counter() - t0:.1f} s")
+
+
+def case_options(args):
+    """K4's keyword options for a case from the command line's flags, as
+    ``measure``'s ``options``."""
+    def options(name, n_g, batches):
+        out = {}
+        if args.solver_mode != "scan":
+            out["solver_mode"] = args.solver_mode
+        if args.mode != "microep":
+            out["mode"] = args.mode
+            out["cols"] = CASES[name][1][1]
+        if args.no_locality:
+            out["locality"] = False
+        dev = batches[0].device
+        if args.profiles:
+            from ..engine.config import DeviceProfile
+            w = np.resize([p.weight for p in
+                           DeviceProfile.parse_list(args.profiles)], n_g)
+            if not np.all(w == w[0]):
+                out["weights"] = torch.tensor(w / w.mean(),
+                                              dtype=torch.float32,
+                                              device=dev)
+        if args.mem_caps:
+            mean = float(batches[0].sum()) / n_g
+            out["caps"] = torch.full((n_g,), args.mem_caps * mean,
+                                     dtype=torch.float32, device=dev)
+        return out
+    return options
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--solver-mode", choices=("scan", "batched"),
+                    default="scan")
+    ap.add_argument("--mode", choices=("microep", "vanilla"),
+                    default="microep")
+    ap.add_argument("--no-locality", action="store_true")
+    ap.add_argument("--profiles", default="",
+                    help="device weights, cycled over a case's devices")
+    ap.add_argument("--mem-caps", type=float, default=0.0,
+                    help="caps as a factor of the mean device load")
+    ap.add_argument("--scheduler-core", action="store_true",
+                    help="chip_smoke.py phase 16 alone")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_k4 needs a CUDA device")
-    for name in CASES:
-        print(describe(name, measure(name, torch.device("cuda", 0))))
+    if args.scheduler_core:
+        scheduler_core()
+    else:
+        options = case_options(args)
+        for name in CASES:
+            m = measure(name, torch.device("cuda", 0), options=options)
+            _, n_g, _, batches = case(name, "cpu")
+            print(describe(name, m, options(name, n_g, batches)))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())

@@ -35,12 +35,14 @@ class MoEMetrics(NamedTuple):
 
 
 class MoEFFNSpec(NamedTuple):
-    """Static configuration bundle for one MoE layer."""
+    """Static configuration bundle for one MoE layer.  ``mem_caps`` (f32[G]
+    per-device token caps, or None) go to the scheduler on every call."""
 
     statics: D.DispatchStatics
     scheduler: Scheduler
     top_k: int
     activation: str
+    mem_caps: Optional[torch.Tensor] = None
 
 
 def moe_ffn(
@@ -68,7 +70,7 @@ def moe_ffn(
 
     if state is not None:
         state = SolverState(x=state.x.detach())
-    sched = spec.scheduler(input_eg, state)
+    sched = spec.scheduler(input_eg, state, mem_caps=spec.mem_caps)
     plan = D.make_plan(st, ex, sched.flow, 0)
     flat = D.dispatch(st, plan, rows)
     out_flat = expert_ffn_flat(flat, plan.group_start, plan.group_end,

@@ -327,7 +327,7 @@ def test_cuda_scheduler_is_one_k4_launch(monkeypatch):
     the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (K4 is a CUDA kernel)")
-    from repro_torch.engine import MicroEPEngine
+    from repro_torch.engine import MicroEPEngine, SchedulePolicy
     from repro_torch.kernels.sched import schedule_cuda
 
     def refuse(*args, **kwargs):
@@ -337,12 +337,145 @@ def test_cuda_scheduler_is_one_k4_launch(monkeypatch):
     scheduler = MicroEPEngine.build(
         n_e, grid, placement=time_k4.replicated_placement(*grid, n_e, slots,
                                                           seed=0),
-        sequencing=seq, device="cuda").scheduler
+        policy=SchedulePolicy(sequencing=seq), device="cuda").scheduler
     _, _, _, batches = time_k4.case("paper-g16", "cuda")
     before = schedule_cuda.launches
     state = scheduler.init_state()
     for input_eg in batches:
         state = scheduler(input_eg, state).solver_state
+    assert schedule_cuda.launches - before == len(batches)
+
+
+# K4's options beside its defaults, on cases of time_k4.CASES and K4_EXTRA
+K4_OPTION_CASES = ["olmoe-decode", "paper-g16", "greedy-g8", "e8-g8-r8",
+                   "e256-g64-r32"]
+K4_OPTIONS = ["jacobi", "weighted", "weighted-jacobi", "caps", "caps-jacobi",
+              "caps-weighted", "caps-weighted-jacobi", "vanilla",
+              "no-locality", "no-locality-jacobi"]
+
+
+def _k4_options(kind: str, name: str, n_g: int, batches) -> dict:
+    """K4's keyword options for ``kind``: device weights 2 and 1 in turn,
+    caps at the first micro-batch's mean device load on the even devices
+    and 1.3 × it on the odd ones (they bind), the vanilla mode on the
+    case's rows, routing without its local phase, and damped Jacobi."""
+    spec = time_k4.CASES.get(name) or K4_EXTRA[name]
+    out = {}
+    if "jacobi" in kind:
+        out["solver_mode"] = "batched"
+    if "weighted" in kind:
+        w = np.resize([2.0, 1.0], n_g)
+        out["weights"] = torch.tensor(w / w.mean(), dtype=torch.float32,
+                                      device="cuda")
+    if "caps" in kind:
+        mean = float(batches[0].sum()) / n_g
+        out["caps"] = torch.tensor(np.resize([1.0, 1.3], n_g) * mean,
+                                   dtype=torch.float32, device="cuda")
+    if kind == "vanilla":
+        out.update(mode="vanilla", cols=spec[1][1])
+    if "no-locality" in kind:
+        out["locality"] = False
+    return out
+
+
+def _identical(got, expect, what: str):
+    for label, a, b in zip(("x", "x_int", "flow", "max_load", "balance"),
+                           got, expect):
+        assert torch.equal(a, b), (
+            f"{what}: K4's {label} differs from the plain version's by "
+            f"{(a.double() - b.double()).abs().max().item():.3e}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("warm", [True, False], ids=["warm", "cold"])
+@pytest.mark.parametrize("kind", K4_OPTIONS)
+@pytest.mark.parametrize("name", K4_OPTION_CASES)
+def test_cuda_k4_options_match_plain_version_bit_for_bit(name, kind, warm):
+    """Every option of K4 (damped Jacobi, device weights, memory caps, both
+    together, vanilla mode, routing without locality) against
+    ``ref.schedule_ref`` on the card over three micro-batches, warm or
+    cold: every output equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K4 is a CUDA kernel)")
+    spec = name if name in time_k4.CASES else K4_EXTRA[name]
+    dev, n_g, seq, batches = time_k4.case(spec, "cuda")
+    options = _k4_options(kind, name, n_g, batches)
+    for i, (got, expect) in enumerate(time_k4.run_both(
+            dev, n_g, seq, batches, warm, options)):
+        _identical(got, expect, f"{name} {kind} micro-batch {i}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["scan", "caps-weighted-jacobi"])
+def test_cuda_k4_leading_dims_are_instances(kind):
+    """One launch over leading dims [2, 3] (a block an instance) equals a
+    launch per instance, bit for bit, with the warm starts given."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K4 is a CUDA kernel)")
+    dev, n_g, seq, _ = time_k4.case("paper-g16", "cuda")
+    rng = np.random.default_rng(5)
+    counts = torch.tensor(np.stack([time_k4.routed_counts(
+        rng, dev.shape[0], n_g, 512, 2, 1.0) for _ in range(6)]),
+        device="cuda").reshape(2, 3, dev.shape[0], n_g)
+    options = _k4_options(kind, "paper-g16", n_g, [counts[0, 0]])
+    sweeps = time_k4.sweeps_of(options)
+    x0 = torch.rand((2, 3) + tuple(dev.shape), device="cuda") * (dev >= 0)
+    got = ops.schedule(counts, dev, n_g, x0, seq, sweeps, **options)
+    for i in range(2):
+        for j in range(3):
+            one = ops.schedule(counts[i, j], dev, n_g, x0[i, j], seq, sweeps,
+                               **options)
+            _identical([t[i, j] for t in got], one, f"instance {i}, {j}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["jacobi", "caps-weighted", "vanilla"])
+def test_cuda_k4_options_repeat_bit_for_bit(kind):
+    """Two launches on the same inputs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K4 is a CUDA kernel)")
+    dev, n_g, seq, batches = time_k4.case("paper-g16", "cuda")
+    options = _k4_options(kind, "paper-g16", n_g, batches)
+    x0 = ops.schedule(batches[0], dev, n_g, None, seq, **options)[0]
+    one = ops.schedule(batches[1], dev, n_g, x0, seq, **options)
+    two = ops.schedule(batches[1], dev, n_g, x0, seq, **options)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("build", [
+    dict(policy="vanilla"),
+    dict(policy=dict(solver_mode="batched")),
+    dict(policy=dict(locality=False, sequencing="greedy")),
+    dict(device_profiles="2,1,1,1,2,1,1,1"),
+    dict(policy=dict(solver_mode="batched"), mem_caps=np.full(8, 40.0)),
+], ids=["vanilla", "jacobi", "no-locality-greedy", "profiles",
+        "caps-jacobi"])
+def test_cuda_scheduler_options_are_one_k4_launch(monkeypatch, build):
+    """Every engine option runs in one K4 launch a ``Scheduler`` call on the
+    card, with the plain version patched to raise, and equals the CPU
+    engine's schedule bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K4 is a CUDA kernel)")
+    from repro_torch.engine import SchedulePolicy
+    from repro_torch.kernels.sched import schedule_cuda
+    if isinstance(build.get("policy"), dict):
+        build = dict(build, policy=SchedulePolicy(**build["policy"]))
+    card, cpu = time_k4.engines(16, (2, 4), placement="latin", **build)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain scheduler ran on the card path")
+    rng = np.random.default_rng(3)
+    batches = [torch.tensor(rng.integers(0, 30, size=(16, 8)))
+               for _ in range(3)]
+    expect = time_k4.check_engines(card, cpu, batches, True, "engine")
+    monkeypatch.setattr(ref, "schedule_ref", refuse)
+    before = schedule_cuda.launches
+    state = None
+    for counts, e in zip(batches, expect):
+        s = card.schedule(counts.cuda(), state)
+        assert torch.equal(s.flow, e.flow)
+        state = s.solver_state
     assert schedule_cuda.launches - before == len(batches)
 
 
