@@ -15,10 +15,13 @@ Phases, in order; any failure raises and exits nonzero:
      three activations: (a) bm 128, S 3, H 128, F 512, counts [100, 0, 250];
      (b) the olmoe-1b-7b decode geometry of phase 4 (bm 8, S 64, H 2048,
      F 1024, the flat buffer the path builds for the serving batch);
-     (c) ragged H and F.  Tolerances: f32 2e-5 at (a) and (c), 1e-4 at (b)
-     (sums 2048 and 1024 long, taken in another order), bf16 2e-2; rows
-     outside every group must be exact zeros.  Times K1 (the weight-streaming
-     up and down kernels, one call) and the plain version at (b);
+     (c) ragged H and F; (d) paper-mixtral-16x2b's decode geometry of phase
+     18 (expert tensor parallelism 2: 32 virtual experts of H 2048, F
+     4096, 4 rows a token).  Tolerances: f32 2e-5 at (a) and (c), 1e-4 at
+     (b) and (d) (sums thousands long, taken in another order), bf16 2e-2;
+     rows outside every group must be exact zeros.  Times K1 (the
+     weight-streaming up and down kernels, one call) and the plain version
+     at (b) and (d);
   4. serve olmoe-1b-7b at full width and depth (16 layers, 64 experts,
      f32 weights drawn on the card from a seeded generator) through
      ``ServingSession``: every request finishes, no overflow, and K1 and K4
@@ -87,7 +90,10 @@ Phases, in order; any failure raises and exits nonzero:
      K1b output at most twice as far from the plain K1b in float64 as the
      f32 plain version (the guard against a truncating tensor-core
      accumulator), and both timed beside their bounds (K1b's: 3xTF32 on
-     the tensor cores, 3 × operations ÷ 495 TFLOP/s);
+     the tensor cores, 3 × operations ÷ 495 TFLOP/s); the same at
+     paper-mixtral-16x2b's training geometry of phase 19 (2048 tokens x
+     top-2 x etp 2: N 24 832, 8192 rows over 32 virtual experts, H 2048, F
+     4096);
  12. train olmoe-1b-7b at full width, depth cut to 4 layers
      (``dataclasses.replace(cfg, num_layers=4)``: f32 master, gradient and
      two Adam moments take 16 B a parameter, and the 16-layer model's 6.82
@@ -144,11 +150,34 @@ Phases, in order; any failure raises and exits nonzero:
      ``MemoryModel.from_arch(olmoe-1b-7b)``, each warm max load beside
      HiGHS's optimum; (c) Fig. 9's grid, (G, E) from (8, 32) to (64, 256)
      on 2-row latin groups, both solver orders, cold and warm: K4's device
-     time.  K4 launched in the phase, counted from 0.
+     time.  K4 launched in the phase, counted from 0;
+ 17. dense decoders, nothing cut, which launch no hand-written kernel (their
+     FFN and attention are plain products, as in the reference): (a) serve
+     qwen1.5-0.5b (0.464 B parameters) and gemma-2b (2.506 B; MQA, head_dim
+     256, GeGLU, vocab 256 000) with 4 Poisson requests at 4 slots, every
+     request finished, no balance, no kernel launched; decode steps, tokens,
+     the wall time a step; (b) two training steps of qwen1.5-0.5b, 8 × 512
+     synthetic tokens in 2 micro-batches; (c) the serving path card vs CPU
+     on the smoke config of each, as phase 5, and one train step of
+     qwen1.5-0.5b smoke, as phase 13;
+ 18. serve paper-mixtral-16x2b (the paper's Table 2 Mixtral, expert tensor
+     parallelism 2 as 32 virtual experts) at full width, depth cut from 32
+     to 16 layers (104.7 GB of f32 weights do not fit; 16 layers take 52.5
+     GB), as phase 4: K1 (S 32, H 2048, F 4096, bm 8, 4 rows a token) and
+     K4 (E 32, G 1, R 1) launched in every layer of every step, the plain
+     scheduler not once, the step's split; then the serving path card vs
+     CPU on its smoke config with etp 2, as phase 5;
+ 19. train paper-mixtral-16x2b at full width, depth cut to 4 layers (3.33 B
+     parameters; f32 master, gradients and two Adam moments take 53.3 GB):
+     four steps of 8 × 512 tokens in 2 micro-batches, as phase 12 (K4, K1
+     and K1b each 8 times a step); then one train step of its smoke config
+     with etp 2 card vs CPU, as phase 13.
+Phases 17-19 print each part's wall time, peak memory and kernel launches.
 The last two lines are the kernels' JSON record and the result object.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -185,6 +214,48 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+_TALLY: dict = {}    # each wrapper's launches before its last reset
+
+
+def zero_counts(*wrappers) -> None:
+    """Set the launch counts of ``wrappers`` to 0 (just before a main path,
+    or after comparison launches), keeping their totals for the phase
+    summaries."""
+    for fn in wrappers:
+        _TALLY[fn] = _TALLY.get(fn, 0) + fn.launches
+        fn.launches = 0
+
+
+def launch_totals() -> dict:
+    """Every kernel wrapper's launches since the script began."""
+    from repro_torch.kernels.grouped_matmul import (grouped_ffn_cuda,
+                                                    grouped_ffn_flat_bwd_cuda,
+                                                    grouped_ffn_flat_cuda)
+    from repro_torch.kernels.sched import schedule_cuda
+    from repro_torch.kernels.wkv6_chunk import wkv6_cuda, wkv6_state_cuda
+    return {name: _TALLY.get(fn, 0) + fn.launches for name, fn in (
+        ("K1", grouped_ffn_flat_cuda), ("K1b", grouped_ffn_flat_bwd_cuda),
+        ("K2", grouped_ffn_cuda), ("K3", wkv6_cuda), ("K3s", wkv6_state_cuda),
+        ("K4", schedule_cuda))}
+
+
+@contextlib.contextmanager
+def phase_stats(label: str):
+    """Print the block's wall time, its peak device memory and the kernel
+    launches made in it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_totals()
+    t0 = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in launch_totals().items()}
+    print(f"  [{label}] wall {wall:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, kernel "
+          f"launches " + ", ".join(f"{k} {v}" for k, v in launched.items()))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -248,15 +319,58 @@ def check_k1(label, x, start, end, weights, activation, bm, tol) -> float:
     return e
 
 
-def phase_k1(cfg, batch: int, device) -> dict:
-    from repro_torch.kernels import ref
+K1_ACTS = ("swiglu", "geglu", "relu_sq")
+K1_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def k1_decode_case(g, cfg, batch: int, device, label: str) -> dict:
+    """K1 at ``cfg``'s decode geometry: the flat buffer the serving path
+    builds for one MoE layer of a ``batch``-token step (the E·etp virtual
+    experts of moe_d_ff / etp columns under expert tensor parallelism),
+    drawn from ``g``; f32 (1e-4: sums H and F long, taken in another
+    order) and bf16 (2e-2), three activations, zeros exact.  Then times K1
+    and its plain version, f32 swiglu (the served case).  -> its record
+    (``launches`` is the caller's)."""
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.grouped_matmul import grouped_ffn_flat_cuda
-    from repro_torch.launch.time_k1 import (decode_flat_buffer, k1_bound,
-                                            random_weights)
+    from repro_torch.launch.time_k1 import (decode_flat_buffer, expert_shape,
+                                            k1_bound, random_weights)
+    x, start, end = decode_flat_buffer(g, cfg, batch, device)
+    s, h, f = expert_shape(cfg)
+    w = random_weights(g, s, h, f, device)
+    err = None
+    for dt in K1_DTYPES:
+        bf = dt == torch.bfloat16
+        for act in K1_ACTS:
+            e = check_k1(f"{label} {dt} {act}", x.to(dt), start, end,
+                         [t.to(dt) for t in w], act, 8, 2e-2 if bf else 1e-4)
+            if not bf and act == "swiglu":
+                err = e
+    k1_ms = cuda_ms(lambda: ops.grouped_ffn_flat(
+        x, start, end, *w, activation="swiglu", bm=8), 20)
+    plain_ms = cuda_ms(lambda: ref.grouped_ffn_flat_ref(
+        x, start, end, *w, activation="swiglu"), 3)
+    counts = end - start
+    n_active = int((counts > 0).sum())
+    bound_ms, bound_by, _, _ = k1_bound(x, start, end, s, h, f, 8)
+    print(f"  K1 {label} f32 swiglu: {k1_ms:.4f} ms, plain version "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{n_active} of {s} experts active x 3·H·F f32 (H {h}, F {f}), "
+          f"{int(counts.sum())} rows read, N={x.shape[0]} rows written; "
+          f"{bound_ms / k1_ms:.1%} reached)")
+    zero_counts(grouped_ffn_flat_cuda)     # comparison launches do not count
+    return {"name": "grouped_ffn_flat", "route": "cuda",
+            "source": "src/repro_torch/csrc/grouped_ffn_flat.cu",
+            "replaces": "src/repro/kernels/grouped_matmul.py:118",
+            "launches": 0, "max_abs_err": err, "ms": k1_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def phase_k1(cfg, batch: int, device) -> dict:
+    from repro_torch.launch.time_k1 import random_weights
     g = torch.Generator(device=device)
     g.manual_seed(1234)
-    acts = ("swiglu", "geglu", "relu_sq")
-    dtypes = (torch.float32, torch.bfloat16)
 
     # (a) the reference kernel test's shapes
     start, end = flat_layout([100, 0, 250], 128, 384, device)
@@ -266,47 +380,15 @@ def phase_k1(cfg, batch: int, device) -> dict:
     start_c, end_c = flat_layout([5, 2, 0, 7, 1], 8, 48, device)
     x_c = torch.randn((48, 200), generator=g, device=device) * 0.5
     w_c = random_weights(g, 5, 200, 300, device)
-    # (b) the olmoe decode geometry
-    x_b, start_b, end_b = decode_flat_buffer(g, cfg, batch, device)
-    w_b = random_weights(g, cfg.num_experts, cfg.d_model, cfg.moe_d_ff,
-                         device)
-
-    err_b = None
-    for dt in dtypes:
+    for dt in K1_DTYPES:
         bf = dt == torch.bfloat16
-        for act in acts:
+        for act in K1_ACTS:
             check_k1(f"(a) {dt} {act}", x.to(dt), start, end,
                      [t.to(dt) for t in w], act, 128, 2e-2 if bf else 2e-5)
             check_k1(f"(c) {dt} {act}", x_c.to(dt), start_c, end_c,
                      [t.to(dt) for t in w_c], act, 8, 2e-2 if bf else 2e-5)
-            e = check_k1(f"(b) {dt} {act}", x_b.to(dt), start_b, end_b,
-                         [t.to(dt) for t in w_b], act, 8,
-                         2e-2 if bf else 1e-4)
-            if not bf and act == "swiglu":
-                err_b = e
-
-    # time K1 and its plain version at (b), f32 swiglu (the served case)
-    from repro_torch.kernels import ops
-    k1_ms = cuda_ms(lambda: ops.grouped_ffn_flat(
-        x_b, start_b, end_b, *w_b, activation="swiglu", bm=8), 20)
-    plain_ms = cuda_ms(lambda: ref.grouped_ffn_flat_ref(
-        x_b, start_b, end_b, *w_b, activation="swiglu"), 3)
-    counts = end_b - start_b
-    n_active = int((counts > 0).sum())
-    rows = int(counts.sum())
-    bound_ms, bound_by, _, _ = k1_bound(x_b, start_b, end_b, cfg.num_experts,
-                                        cfg.d_model, cfg.moe_d_ff, 8)
-    print(f"  K1 (b) f32 swiglu: {k1_ms:.4f} ms, plain version "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-          f"{n_active} active experts x 3·H·F f32, {rows} rows read, "
-          f"N={x_b.shape[0]} rows written; {bound_ms / k1_ms:.1%} reached)")
-    grouped_ffn_flat_cuda.launches = 0     # comparison launches do not count
-    return {"name": "grouped_ffn_flat", "route": "cuda",
-            "source": "src/repro_torch/csrc/grouped_ffn_flat.cu",
-            "replaces": "src/repro/kernels/grouped_matmul.py:118",
-            "launches": 0, "max_abs_err": err_b, "ms": k1_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    # (b) the olmoe decode geometry, timed
+    return k1_decode_case(g, cfg, batch, device, "(b)")
 
 
 # ------------------------------------------------------- phase 4: serving
@@ -386,9 +468,10 @@ def phase_serve(cfg, serve_cfg, device):
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.num_experts} experts top-{cfg.top_k}, {n_params / 1e9:.3f} B "
-          f"f32 params initialised on the card in "
-          f"{time.perf_counter() - t0:.1f} s "
+          f"{cfg.num_experts} experts top-{cfg.top_k}"
+          f"{f' x etp {cfg.etp}' if cfg.etp > 1 else ''}, moe_d_ff "
+          f"{cfg.moe_d_ff}, {n_params / 1e9:.3f} B f32 params initialised "
+          f"on the card in {time.perf_counter() - t0:.1f} s "
           f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated)")
     requests = poisson_trace(4, rate=0.5, vocab=cfg.vocab, prompt_len=8,
                              gen_len=8, seed=1)
@@ -408,8 +491,8 @@ def phase_serve(cfg, serve_cfg, device):
     for (mod, name), fn in originals.items():
         setattr(mod, name, counted(name, fn))
     try:
-        grouped_ffn_flat_cuda.launches = 0      # just before the main path
-        schedule_cuda.launches = 0
+        zero_counts(grouped_ffn_flat_cuda)      # just before the main path
+        zero_counts(schedule_cuda)
         rep = sess.run(requests)
         launches = grouped_ffn_flat_cuda.launches   # just after it
         k4_launches = schedule_cuda.launches
@@ -436,18 +519,36 @@ def phase_serve(cfg, serve_cfg, device):
             f"K4 launched {k4_launches} times, expected {expect}")
     require(not any(plain_calls.values()),
             f"the plain scheduler ran on the card path: {plain_calls}")
+    print(f"  wall time per decode step in the served run "
+          f"{rep.wall_s / rep.decode_steps * 1e3:.1f} ms, "
+          f"{rep.gen_tokens} tokens generated")
     step_split(model, cfg, serve_cfg, device)
-    del sess, model   # frees the 27 GB model before the later phases
+    del sess, model   # frees the model before the later phases
     return launches, k4_launches
 
 
 # ------------------------------------------------- phase 5: card vs CPU
 
 
+def state_to(state: dict, device) -> dict:
+    """A decode state (KV caches, solver warm starts) copied to ``device``."""
+    def move(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device)
+        if isinstance(v, tuple) and hasattr(v, "_fields"):
+            return type(v)(*(move(a) for a in v))
+        if isinstance(v, list):
+            return [move(a) for a in v]
+        return v
+    return {k: move(v) for k, v in state.items()}
+
+
 def phase_parity(cfg, device) -> None:
+    """``cfg`` served on the card and on the CPU with identical weights:
+    one decode step's logits within 1e-4, then identical tokens per
+    request on the golden arrivals.  An MoE config's card run goes through
+    K1 and K4; a dense one launches no hand-written kernel."""
     from repro_torch.engine import ServeConfig
-    from repro_torch.kernels.grouped_matmul import grouped_ffn_flat_cuda
-    from repro_torch.kernels.sched import schedule_cuda
     from repro_torch.models import decoder as dec
     from repro_torch.serve import ServingSession, replay_trace
     cpu_model = dec.init_params(cfg, seed=0, device="cpu")
@@ -455,16 +556,11 @@ def phase_parity(cfg, device) -> None:
     sc = ServeConfig(max_batch=3, max_seq=24)
 
     state = dec.init_decode_state(cfg, 3, 24, device="cpu")
-    state["solver"] = dec.init_solver_states(cfg, 1, device="cpu")
+    if cfg.moe:
+        state["solver"] = dec.init_solver_states(cfg, 1, device="cpu")
     toks = torch.tensor([[5], [77], [301]])
     logits_cpu, _ = dec.decode_step(cpu_model, state, {"tokens": toks})
-    gstate = {"pos": state["pos"].to(device),
-              "kv": [c._replace(k=c.k.to(device), v=c.v.to(device),
-                                length=c.length.to(device))
-                     for c in state["kv"]],
-              "solver": [s._replace(x=s.x.to(device))
-                         for s in state["solver"]]}
-    logits_gpu, _ = dec.decode_step(gpu_model, gstate,
+    logits_gpu, _ = dec.decode_step(gpu_model, state_to(state, device),
                                     {"tokens": toks.to(device)})
     require(logits_gpu.shape == (3, 1, cfg.vocab)
             and bool(torch.isfinite(logits_gpu).all()),
@@ -473,23 +569,26 @@ def phase_parity(cfg, device) -> None:
     print(f"  one decode step: card vs CPU logits max abs diff {diff:.3e}")
     require(diff < 1e-4, f"card and CPU logits differ by {diff:.3e}")
 
-    before = grouped_ffn_flat_cuda.launches
-    before_k4 = schedule_cuda.launches
+    before = launch_totals()
     reps = {}
     for name, dev, model in (("card", device, gpu_model),
                              ("cpu", "cpu", cpu_model)):
         reqs = replay_trace(GOLDEN_ARRIVALS, vocab=cfg.vocab, seed=11)
         reps[name] = ServingSession(cfg, sc, device=dev,
                                     model=model).run(reqs)
-    require(grouped_ffn_flat_cuda.launches > before,
-            "the card run did not go through K1")
-    require(schedule_cuda.launches > before_k4,
-            "the card run did not go through K4")
+    launched = {k: v - before[k] for k, v in launch_totals().items()}
+    if cfg.moe:
+        require(launched["K1"] > 0, "the card run did not go through K1")
+        require(launched["K4"] > 0, "the card run did not go through K4")
+    else:
+        require(not any(launched.values()),
+                f"a dense decoder launched kernels: {launched}")
     tok_gpu = [r.tokens for r in reps["card"].records]
     tok_cpu = [r.tokens for r in reps["cpu"].records]
-    print(f"  {cfg.name}: {len(tok_gpu)} requests, "
-          f"{sum(map(len, tok_gpu))} tokens on the card, identical to the "
-          f"CPU: {tok_gpu == tok_cpu}")
+    print(f"  {cfg.name}{f' etp {cfg.etp}' if cfg.etp > 1 else ''}: "
+          f"{len(tok_gpu)} requests, {sum(map(len, tok_gpu))} tokens on the "
+          f"card, identical to the CPU: {tok_gpu == tok_cpu}; card "
+          f"launches K1 {launched['K1']}, K4 {launched['K4']}")
     require(tok_gpu == tok_cpu, f"card tokens {tok_gpu} != CPU {tok_cpu}")
 
 
@@ -551,7 +650,7 @@ def phase_k2(cfg, batch: int, device) -> dict:
               f"within tolerance, zeros exact")
 
     # K2's path: its entry point (no model reaches it), in the timed run
-    grouped_ffn_cuda.launches = 0
+    zero_counts(grouped_ffn_cuda)
     k2_ms = cuda_ms(lambda: ops.grouped_ffn(x_d, cnt_d, *w_d, bm=8), 20)
     launches = grouped_ffn_cuda.launches
     require(launches == 21, f"K2 launched {launches} times in its timed "
@@ -641,7 +740,7 @@ def phase_k3(fwd_geom, device) -> dict:
     print(f"  K3 {fwd_geom} f32, rwkv6-7b's decays: {k3_ms:.4f} ms, plain version "
           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
           f"{nbytes / 1e6:.0f} MB moved, {flops / 1e9:.2f} GFLOP)")
-    wkv6_cuda.launches = 0     # comparison launches do not count
+    zero_counts(wkv6_cuda)     # comparison launches do not count
     return {"name": "wkv6", "route": "cuda",
             "source": "src/repro_torch/csrc/wkv6.cu",
             "replaces": "src/repro/kernels/wkv6_chunk.py:93",
@@ -699,7 +798,7 @@ def phase_forward(cfg, batch: int, seq: int, device) -> int:
     torch.cuda.reset_peak_memory_stats()
     reps = 2
 
-    wkv6_cuda.launches = 0                      # just before the main path
+    zero_counts(wkv6_cuda)                      # just before the main path
     t0 = time.perf_counter()
     for _ in range(reps):
         last = prefill({"tokens": tokens})
@@ -774,7 +873,7 @@ def phase_forward_parity(cfg, device) -> None:
 def phase_sched_core() -> None:
     from repro_torch.kernels.sched import schedule_cuda
     from repro_torch.launch import time_k4
-    schedule_cuda.launches = 0
+    zero_counts(schedule_cuda)
     try:
         time_k4.scheduler_core()
     except AssertionError as exc:
@@ -797,7 +896,7 @@ def phase_k4(device) -> dict:
         except AssertionError as exc:
             raise SmokeFailure(str(exc)) from exc
         print("  " + time_k4.describe(name, got[name]))
-    schedule_cuda.launches = 0     # comparison launches do not count
+    zero_counts(schedule_cuda)     # comparison launches do not count
     m = got["olmoe-decode"]        # the served path's geometry
     bound_ms, bound_by, _, _ = m["bound"]
     return {"name": "microep_schedule", "route": "cuda",
@@ -816,11 +915,9 @@ K1B_CASES = ((8, [3, 0, 9, 1, 0, 4], 200, 300), (8, [1, 1, 0, 1], 64, 30),
 
 
 def phase_k1b(device):
-    """-> (K1b's record, ``time_k1b.measure``'s result)."""
+    """-> ``training_geometry`` at olmoe-1b-7b's."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.grouped_matmul import (grouped_ffn_flat_bwd_cuda,
-                                                    grouped_ffn_flat_cuda)
-    from repro_torch.launch import time_k1b
+    from repro_torch.kernels.grouped_matmul import grouped_ffn_flat_bwd_cuda
     from repro_torch.launch.time_k1 import random_weights
     g = torch.Generator(device=device)
     g.manual_seed(2468)
@@ -848,21 +945,40 @@ def phase_k1b(device):
         print(f"  K1b bm {bm}, counts {counts}, H {h}, F {f}: dx, dWg, dWu, "
               f"dWd x 3 activations, max abs err {max(errs):.3e} (tol "
               f"2e-5), dx zero outside the groups")
+    return training_geometry(device, "olmoe-1b-7b")
+
+
+def training_geometry(device, arch: str):
+    """``launch/time_k1b.py``'s checks and times of K1 and K1b at
+    ``arch``'s training geometry.  -> (K1's record, K1b's record,
+    ``time_k1b.measure``'s result); the records' launches are the
+    caller's."""
+    from repro_torch.kernels.grouped_matmul import (grouped_ffn_flat_bwd_cuda,
+                                                    grouped_ffn_flat_cuda)
+    from repro_torch.launch import time_k1b
     try:
-        r = time_k1b.measure(device)
+        r = time_k1b.measure(device, arch=arch)
     except AssertionError as exc:
         raise SmokeFailure(str(exc)) from exc
     for line in time_k1b.describe(r).splitlines():
         print("  " + line)
-    grouped_ffn_flat_cuda.launches = 0      # comparison launches do not count
-    grouped_ffn_flat_bwd_cuda.launches = 0
-    bound_ms, bound_by = r["k1b_bound"][:2]
-    return {"name": "grouped_ffn_flat_bwd", "route": "cuda",
-            "source": "src/repro_torch/csrc/grouped_ffn_flat_bwd.cu",
-            "replaces": "src/repro/kernels/ref.py:47",
-            "launches": 0, "max_abs_err": r["k1b_err"], "ms": r["k1b_ms"],
-            "plain_ms": r["k1b_plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}, r
+    zero_counts(grouped_ffn_flat_cuda)      # comparison launches do not count
+    zero_counts(grouped_ffn_flat_bwd_cuda)
+    k1_ms, k1_by = r["k1_bound"][:2]
+    k1b_ms, k1b_by = r["k1b_bound"][:2]
+    k1 = {"name": f"grouped_ffn_flat ({arch} training)", "route": "cuda",
+          "source": "src/repro_torch/csrc/grouped_ffn_flat.cu",
+          "replaces": "src/repro/kernels/grouped_matmul.py:118",
+          "launches": 0, "max_abs_err": r["k1_err"], "ms": r["k1_ms"],
+          "plain_ms": r["k1_plain_ms"], "bound_ms": k1_ms,
+          "bound_by": k1_by, "library_ms": None}
+    k1b = {"name": "grouped_ffn_flat_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/grouped_ffn_flat_bwd.cu",
+           "replaces": "src/repro/kernels/ref.py:47",
+           "launches": 0, "max_abs_err": r["k1b_err"], "ms": r["k1b_ms"],
+           "plain_ms": r["k1b_plain_ms"], "bound_ms": k1b_ms,
+           "bound_by": k1b_by, "library_ms": None}
+    return k1, k1b, r
 
 
 # ---------------------------------------------- phase 12: olmoe training
@@ -901,25 +1017,35 @@ def train_split(ts, step, batch) -> dict:
     return out
 
 
-def phase_train(cfg, device, k1_train: dict) -> int:
-    """-> K1b launches of the training run."""
+def phase_train(cfg, device, steps: int, k1_train: dict = None) -> dict:
+    """Train ``cfg`` (depth cut by the caller where it must be) for
+    ``steps`` steps of 8 × 512 synthetic tokens in 2 micro-batches: finite
+    losses and gradient norms, no overflow, K1, K1b and K4 each launched
+    once a MoE layer a micro-batch (none for a dense decoder) and no plain
+    version; the step time, tokens/s and peak memory, then (MoE) one more
+    step split by synchronised timers.  -> the run's kernel launches."""
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.kernels.grouped_matmul import (grouped_ffn_flat_bwd_cuda,
                                                     grouped_ffn_flat_cuda)
     from repro_torch.kernels.sched import schedule_cuda
     from repro_torch.launch.check_train import (count_plain_calls,
                                                 kernel_launches)
+    from repro_torch.models import decoder as dec
     from repro_torch.train.loop import init_train_state, make_train_step
-    layers, batch, seq, n_micro, steps = 4, 8, 512, 2, 6
-    cfg = dataclasses.replace(cfg, num_layers=layers)   # reduced: depth
+    batch, seq, n_micro = 8, 512, 2
+    n_moe = dec.n_moe_layers(cfg)
     t0 = time.perf_counter()
     ts = init_train_state(cfg, seed=0, device=device)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in ts.model.parameters())
-    print(f"  {cfg.name}, depth cut to {layers} layers: d_model "
-          f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim}, "
-          f"{cfg.num_experts} experts top-{cfg.top_k}, moe_d_ff "
-          f"{cfg.moe_d_ff}, vocab {cfg.vocab}, tied embeddings; "
+    ffn = (f"{cfg.num_experts} experts top-{cfg.top_k}"
+           f"{f' x etp {cfg.etp}' if cfg.etp > 1 else ''}, moe_d_ff "
+           f"{cfg.moe_d_ff}" if cfg.moe else f"dense {cfg.ffn_kind} d_ff "
+           f"{cfg.d_ff}")
+    print(f"  {cfg.name}, {cfg.num_layers} layers: d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim} "
+          f"({cfg.num_kv_heads} KV), {ffn}, vocab {cfg.vocab}, "
+          f"{'tied embeddings' if cfg.tie_embeddings else 'untied head'}; "
           f"{n_params / 1e9:.3f} B f32 params, master + 2 Adam moments "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, initialised on "
           f"the card in {time.perf_counter() - t0:.1f} s")
@@ -927,9 +1053,9 @@ def phase_train(cfg, device, k1_train: dict) -> int:
     data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, batch=batch, seed=1)
     torch.cuda.reset_peak_memory_stats()
     times, rows = [], []
-    grouped_ffn_flat_cuda.launches = 0          # just before the main path
-    grouped_ffn_flat_bwd_cuda.launches = 0
-    schedule_cuda.launches = 0
+    zero_counts(grouped_ffn_flat_cuda)          # just before the main path
+    zero_counts(grouped_ffn_flat_bwd_cuda)
+    zero_counts(schedule_cuda)
     with count_plain_calls() as plain:
         for i in range(steps):
             torch.cuda.synchronize()
@@ -944,7 +1070,7 @@ def phase_train(cfg, device, k1_train: dict) -> int:
                   f"overflow {vals['overflow']:.0f}, {times[-1]:.1f} ms")
     launches = kernel_launches()                # just after it
     peak = torch.cuda.max_memory_allocated()
-    expect = steps * layers * n_micro
+    expect = steps * n_moe * n_micro
     require(all(torch.isfinite(torch.tensor([r["loss"], r["grad_norm"]]))
                 .all() for r in rows), "a loss or gradient norm is not finite")
     require(all(r["overflow"] == 0 for r in rows), "capacity overflow")
@@ -956,35 +1082,44 @@ def phase_train(cfg, device, k1_train: dict) -> int:
     step_ms = sum(steady) / len(steady)
     tokens = batch * seq
     print(f"  launches over {steps} steps: {launches} ({expect // steps} "
-          f"each a step = {layers} layers x {n_micro} micro-batches); plain "
-          f"calls {plain}")
+          f"each a step = {n_moe} MoE layers x {n_micro} micro-batches); "
+          f"plain calls {plain}")
     print(f"  step time {step_ms:.1f} ms (mean of steps 1-{steps - 1}; step "
           f"0 {times[0]:.1f} ms), {tokens / step_ms * 1e3:.0f} tokens/s, "
-          f"peak memory {peak / 2**30:.2f} GiB")
-    print(f"  K1 at the training geometry (phase 11): "
-          f"{k1_train['k1_ms']:.4f} ms a call against "
-          f"{k1_train['k1_bound'][0]:.4f} ms; K1b {k1_train['k1b_ms']:.4f} "
-          f"ms against {k1_train['k1b_bound'][0]:.4f} ms")
-    sp = train_split(ts, step, data.batch_at(steps))
-    print(f"  one more step with the split timers: {sp['step']:.1f} ms = "
-          f"K1 {sp['k1']:.1f} ms + K1b {sp['k1b']:.1f} ms + scheduler "
-          f"{sp['scheduler']:.1f} ms ({layers * n_micro} calls each) + AdamW "
-          f"{sp['adamw']:.1f} ms + rest {sp['rest']:.1f} ms")
+          f"loss {rows[-1]['loss']:.4f}, grad norm {rows[-1]['grad_norm']:.4f},"
+          f" peak memory {peak / 2**30:.2f} GiB")
+    if k1_train is not None:
+        print(f"  K1 at the training geometry (phase 11): "
+              f"{k1_train['k1_ms']:.4f} ms a call against "
+              f"{k1_train['k1_bound'][0]:.4f} ms; K1b "
+              f"{k1_train['k1b_ms']:.4f} ms against "
+              f"{k1_train['k1b_bound'][0]:.4f} ms")
+    if n_moe:
+        sp = train_split(ts, step, data.batch_at(steps))
+        print(f"  one more step with the split timers: {sp['step']:.1f} ms "
+              f"= K1 {sp['k1']:.1f} ms + K1b {sp['k1b']:.1f} ms + scheduler "
+              f"{sp['scheduler']:.1f} ms ({n_moe * n_micro} calls each) + "
+              f"AdamW {sp['adamw']:.1f} ms + rest {sp['rest']:.1f} ms")
+    else:
+        print("  a dense decoder: no hand-written kernel on this path (f32 "
+              "cuBLAS products, attention and AdamW in plain PyTorch)")
     del ts, step
-    return launches["K1b"]
+    return launches
 
 
 # ---------------------------------------- phase 13: training, card vs CPU
 
 
-def phase_train_parity(device) -> None:
+def phase_train_parity(device, cases) -> None:
+    """One train step of each (name, etp) smoke case, card vs CPU
+    (``launch/check_train.py``)."""
     from repro_torch.launch import check_train
-    for name in check_train.CONFIGS:
+    for name, etp in cases:
         try:
-            r = check_train.card_vs_cpu(name, device)
+            r = check_train.card_vs_cpu(name, device, etp=etp)
         except AssertionError as exc:
             raise SmokeFailure(str(exc)) from exc
-        print("  " + check_train.describe(name, r))
+        print("  " + check_train.describe(name, r, etp))
 
 
 # -------------------------------------------- phase 14: serve rwkv6-7b
@@ -1150,8 +1285,8 @@ def phase_rwkv_serve(cfg, serve_cfg, device) -> int:
     ref.wkv6_chunk_ref = counted
     torch.cuda.reset_peak_memory_stats()
     try:
-        wkv6_cuda.launches = 0                  # just before the main path
-        wkv6_state_cuda.launches = 0
+        zero_counts(wkv6_cuda)                  # just before the main path
+        zero_counts(wkv6_state_cuda)
         rep = sess.run(requests)
         launches = wkv6_state_cuda.launches     # just after it
         k3_launches = wkv6_cuda.launches
@@ -1248,6 +1383,73 @@ def phase_rwkv_parity(cfg, device) -> None:
     require(tok_gpu == tok_cpu, f"card tokens {tok_gpu} != CPU {tok_cpu}")
 
 
+# ---------------------------------- phase 17: dense decoders, nothing cut
+
+
+def decode_times(model, cfg, serve_cfg, device, n: int = 10) -> list:
+    """Wall ms of ``n`` synchronised decode steps with every slot active
+    (after one untimed step)."""
+    from repro_torch.models import decoder as dec
+    g = torch.Generator(device=device)
+    g.manual_seed(9)
+    b = serve_cfg.max_batch
+    state = dec.init_decode_state(cfg, b, serve_cfg.max_seq, device=device)
+    if cfg.moe:
+        state["solver"] = dec.init_solver_states(cfg, 1, device=device)
+    toks = torch.randint(0, cfg.vocab, (b, 1), generator=g, device=device)
+    _, state = dec.decode_step(model, state, {"tokens": toks})
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state = dec.decode_step(model, state, {"tokens": toks})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def phase_serve_dense(cfg, serve_cfg, device) -> None:
+    """Serve a dense decoder at full size: 4 Poisson requests, every one
+    finished, no balance, no overflow, and no hand-written kernel
+    launched (its products are cuBLAS's, as the reference's are XLA's)."""
+    from repro_torch.models import decoder as dec
+    from repro_torch.serve import ServingSession, poisson_trace
+    t0 = time.perf_counter()
+    model = dec.init_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads x {cfg.head_dim} ({cfg.num_kv_heads} KV), "
+          f"{cfg.ffn_kind} d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+          f"{n_params / 1e9:.3f} B f32 params initialised on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    requests = poisson_trace(4, rate=0.5, vocab=cfg.vocab, prompt_len=8,
+                             gen_len=8, seed=1)
+    sess = ServingSession(cfg, serve_cfg, device=device, model=model)
+    before = launch_totals()
+    rep = sess.run(requests)
+    launched = {k: v - before[k] for k, v in launch_totals().items()}
+    for line in rep.summary().splitlines():
+        print("  " + line)
+    require(len(rep.records) == len(requests) and rep.rejected == 0,
+            f"served {len(rep.records)} of {len(requests)} requests")
+    require(all(r.n_generated == q.max_new
+                for r, q in zip(rep.records, requests)),
+            "a request finished short of its generation budget")
+    require(rep.mean_balance is None and rep.overflow == 0.0,
+            f"balance {rep.mean_balance}, overflow {rep.overflow}")
+    require(not any(launched.values()),
+            f"the dense path launched kernels: {launched}")
+    times = decode_times(model, cfg, serve_cfg, device)
+    print(f"  {rep.decode_steps} decode steps + 1 warm-up, {rep.gen_tokens} "
+          f"tokens generated, {rep.wall_s / rep.decode_steps * 1e3:.2f} ms "
+          f"a step in the served run; a synchronised step at "
+          f"{serve_cfg.max_batch} slots {sum(times) / len(times):.2f} ms "
+          f"(mean of {len(times)}; {min(times):.2f}-{max(times):.2f}); no "
+          f"hand-written kernel on this path (launches {launched})")
+    del sess, model
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card",
@@ -1279,8 +1481,14 @@ def main() -> int:
 
     olmoe = get_config("olmoe-1b-7b")
     serve_cfg = ServeConfig(max_batch=4, max_seq=16)
+    mixtral = get_config("paper-mixtral-16x2b")
     print("[3] K1 against its plain version")
     record = phase_k1(olmoe, serve_cfg.max_batch, device)
+    g = torch.Generator(device=device)
+    g.manual_seed(4321)
+    k1_mix = k1_decode_case(g, mixtral, serve_cfg.max_batch, device,
+                            "(d) paper-mixtral-16x2b decode, etp 2")
+    k1_mix["name"] = "grouped_ffn_flat (paper-mixtral-16x2b decode)"
     torch.cuda.empty_cache()
 
     print("[4] serve olmoe-1b-7b, full width and depth")
@@ -1316,15 +1524,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     print("[11] K1b against its plain version")
-    k1b, k1_train = phase_k1b(device)
+    k1_olmoe_train, k1b, k1_train = phase_k1b(device)
+    torch.cuda.empty_cache()
+    k1_mix_train, k1b_mix, k1_train_mix = training_geometry(
+        device, "paper-mixtral-16x2b")
+    k1b_mix["name"] = "grouped_ffn_flat_bwd (paper-mixtral-16x2b training)"
     torch.cuda.empty_cache()
 
     print("[12] train olmoe-1b-7b, full width, 4 layers")
-    k1b["launches"] = phase_train(olmoe, device, k1_train)
+    launched = phase_train(dataclasses.replace(olmoe, num_layers=4), device,
+                           steps=6, k1_train=k1_train)
+    k1_olmoe_train["launches"] = launched["K1"]
+    k1b["launches"] = launched["K1b"]
     torch.cuda.empty_cache()
 
     print("[13] one train step, card vs CPU")
-    phase_train_parity(device)
+    from repro_torch.launch.check_train import CONFIGS
+    phase_train_parity(device, [(name, 1) for name in CONFIGS])
     torch.cuda.empty_cache()
 
     print("[14] serve rwkv6-7b, full width and depth")
@@ -1338,10 +1554,53 @@ def main() -> int:
 
     print("[16] the scheduler core at the paper's groups")
     phase_sched_core()
+    torch.cuda.empty_cache()
+
+    print("[17] dense decoders, nothing cut: qwen1.5-0.5b and gemma-2b "
+          "(no hand-written kernel on these paths)")
+    qwen = get_config("qwen1.5-0.5b")
+    for cfg in (qwen, get_config("gemma-2b")):
+        with phase_stats(f"17 (a) serve {cfg.name}"):
+            phase_serve_dense(cfg, serve_cfg, device)
+        torch.cuda.empty_cache()
+    with phase_stats("17 (b) train qwen1.5-0.5b"):
+        phase_train(qwen, device, steps=2)
+    torch.cuda.empty_cache()
+    with phase_stats("17 (c) card vs CPU"):
+        for name in ("qwen1.5-0.5b", "gemma-2b"):
+            phase_parity(get_config(name).smoke(), device)
+        phase_train_parity(device, [("qwen1.5-0.5b", 1)])
+    torch.cuda.empty_cache()
+
+    print("[18] serve paper-mixtral-16x2b, full width, 16 of its 32 layers "
+          "(etp 2: 32 virtual experts)")
+    with phase_stats("18 serve"):
+        # reduced: depth, 32 -> 16 layers (26.17 B parameters, 104.7 GB in
+        # f32, do not fit the card; 16 layers hold 13.12 B, 52.5 GB)
+        k1_mix["launches"], _ = phase_serve(
+            dataclasses.replace(mixtral, num_layers=16), serve_cfg, device)
+    torch.cuda.empty_cache()
+    with phase_stats("18 card vs CPU"):
+        phase_parity(dataclasses.replace(mixtral.smoke(), etp=2), device)
+    torch.cuda.empty_cache()
+
+    print("[19] train paper-mixtral-16x2b, full width, 4 layers (etp 2)")
+    with phase_stats("19 train"):
+        # reduced: depth, 32 -> 4 layers (3.33 B parameters: f32 master,
+        # gradients and two Adam moments take 53.3 GB)
+        launched = phase_train(dataclasses.replace(mixtral, num_layers=4),
+                               device, steps=4, k1_train=k1_train_mix)
+        k1_mix_train["launches"] = launched["K1"]
+        k1b_mix["launches"] = launched["K1b"]
+    torch.cuda.empty_cache()
+    with phase_stats("19 card vs CPU"):
+        phase_train_parity(device, [("paper-mixtral-16x2b", 2)])
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     print(card)
-    print(json.dumps({"kernels": [record, k2, k3, k4, k1b, k3s]}))
+    print(json.dumps({"kernels": [record, k2, k3, k4, k1b, k3s,
+                                  k1_olmoe_train, k1_mix, k1_mix_train,
+                                  k1b_mix]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,7 @@
 """One training step on the card against the same step on the CPU's plain
-path, on the smoke configs of olmoe-1b-7b and paper-gpt-32x1.3b.
+path, on the smoke configs of olmoe-1b-7b, paper-gpt-32x1.3b,
+paper-mixtral-16x2b with expert tensor parallelism 2 (``smoke()`` sets
+``etp`` to 1, so the case sets it back) and the dense qwen1.5-0.5b.
 
   PYTHONPATH=src python -m repro_torch.launch.check_train
 
@@ -7,7 +9,8 @@ Both sides start from the same weights (drawn on the CPU from a seed and
 copied to the card) and take the same numpy batch (4 × 16 tokens, 2
 micro-batches).  On the card every MoE layer of every micro-batch must run
 K4 and K1 forward and K1b backward, and no plain version of K1, K1b or K4;
-the CPU runs exactly those plain versions (autograd of the plain K1).  Held
+the CPU runs exactly those plain versions (autograd of the plain K1).  A
+dense decoder runs none of them on either side.  Held
 to the tolerances of the reference's step checks: the loss within 2e-4, no
 overflow, every gradient within rtol 1e-4 / atol 1e-5, the Adam moments
 within rtol 2e-2 / atol 2e-4, the solver warm starts within 1e-5.  Needs a
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 
 import torch
 
@@ -29,7 +33,7 @@ from ..kernels.sched import schedule_cuda
 from ..models import decoder as dec
 from ..train.loop import init_train_state, make_train_step
 
-CONFIGS = ("olmoe-1b-7b", "paper-gpt-32x1.3b")
+CONFIGS = ("olmoe-1b-7b", "paper-gpt-32x1.3b")   # chip_smoke.py phase 13
 BATCH, SEQ, N_MICRO = 4, 16, 2
 PLAIN = ("grouped_ffn_flat_ref", "grouped_ffn_flat_bwd_ref", "schedule_ref")
 
@@ -56,6 +60,15 @@ def count_plain_calls():
             setattr(ref, name, fn)
 
 
+def smoke_config(name: str, etp: int = 1):
+    """``name``'s smoke config, with expert tensor parallelism ``etp``."""
+    return dataclasses.replace(get_config(name).smoke(), etp=etp)
+
+
+CASES = (("olmoe-1b-7b", 1), ("paper-gpt-32x1.3b", 1),
+         ("paper-mixtral-16x2b", 2), ("qwen1.5-0.5b", 1))
+
+
 def kernel_launches() -> dict:
     return {"K1": grouped_ffn_flat_cuda.launches,
             "K1b": grouped_ffn_flat_bwd_cuda.launches,
@@ -72,11 +85,11 @@ def _max_err(label: str, got: torch.Tensor, expect: torch.Tensor,
     return err.max().item()
 
 
-def card_vs_cpu(name: str, device, seed: int = 0) -> dict:
-    """One step of ``name``'s smoke config on ``device`` and on the CPU;
-    AssertionError on any mismatch.  -> the largest errors and the card's
-    kernel launches."""
-    cfg = get_config(name).smoke()
+def card_vs_cpu(name: str, device, seed: int = 0, etp: int = 1) -> dict:
+    """One step of ``name``'s smoke config (with ``etp``) on ``device`` and
+    on the CPU; AssertionError on any mismatch.  -> the largest errors and
+    the card's kernel launches."""
+    cfg = smoke_config(name, etp)
     cpu_model = dec.init_params(cfg, seed=seed, device="cpu")
     card_model = copy.deepcopy(cpu_model).to(device)
     batch = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, batch=BATCH,
@@ -97,7 +110,7 @@ def card_vs_cpu(name: str, device, seed: int = 0) -> dict:
     if launched != dict.fromkeys(launched, expect) or any(plain.values()):
         raise AssertionError(f"{name}: card launches {launched} (expected "
                              f"{expect} each), plain calls {plain}")
-    if not plain_h["grouped_ffn_flat_ref"]:
+    if expect and not plain_h["grouped_ffn_flat_ref"]:
         raise AssertionError(f"{name}: the CPU step ran no plain K1")
     loss_diff = abs(float(m_c["loss"]) - float(m_h["loss"]))
     if loss_diff >= 2e-4 or float(m_c["overflow"]) != 0.0:
@@ -112,15 +125,17 @@ def card_vs_cpu(name: str, device, seed: int = 0) -> dict:
                            getattr(ts_h.opt, which)[k], 2e-2, 2e-4)
                   for which in ("mu", "nu")
                   for k, v in getattr(ts_c.opt, which).items())
-    solver_err = max(_max_err(f"{name} solver", a.x, b.x, 0.0, 1e-5)
-                     for a, b in zip(ts_c.solver, ts_h.solver))
+    solver_err = max((_max_err(f"{name} solver", a.x, b.x, 0.0, 1e-5)
+                      for a, b in zip(ts_c.solver or (), ts_h.solver or ())),
+                     default=0.0)
     return {"loss_card": float(m_c["loss"]), "loss_diff": loss_diff,
             "grad_err": grad_err, "moment_err": mom_err,
             "solver_err": solver_err, "launches": launched}
 
 
-def describe(name: str, r: dict) -> str:
-    return (f"{name} smoke, one step of {BATCH} x {SEQ} tokens in "
+def describe(name: str, r: dict, etp: int = 1) -> str:
+    return (f"{name} smoke{f' etp {etp}' if etp > 1 else ''}, one step of "
+            f"{BATCH} x {SEQ} tokens in "
             f"{N_MICRO} micro-batches: loss {r['loss_card']:.6f}, card vs "
             f"CPU |dloss| {r['loss_diff']:.2e}, gradients {r['grad_err']:.2e}"
             f" (rtol 1e-4 / atol 1e-5), Adam moments {r['moment_err']:.2e}, "
@@ -132,8 +147,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("check_train needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    for name in CONFIGS:
-        print(describe(name, card_vs_cpu(name, torch.device("cuda", 0))))
+    for name, etp in CASES:
+        print(describe(name, card_vs_cpu(name, torch.device("cuda", 0),
+                                         etp=etp), etp))
     return 0
 
 

@@ -2,13 +2,16 @@
 ``torch.profiler`` run on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_forward [--out DIR]
+      [--arch NAME] [--layers N]
 
-Builds rwkv6-7b at full width and depth with f32 weights drawn on the card
-from ``SEED`` (TF32 off), runs one forward of ``BATCH`` x ``SEQ`` tokens
-through ``make_forward_fn`` as a warm-up, then profiles one more (serving
-prefill, ``last_only``).  ``chip_smoke.py`` drives the forward at the same
-``BATCH`` and ``SEQ``.  Prints the device time of
-K3, of the matrix products and of the rest, and the device's idle share:
+Builds ``--arch`` (default rwkv6-7b; any config the forward runs: RWKV-6,
+or global attention, dense or MoE) at full width, with its depth cut to
+``--layers`` if given, with f32 weights drawn on the card from ``SEED``
+(TF32 off), runs one forward of ``BATCH`` x ``SEQ`` tokens through
+``make_forward_fn`` as a warm-up, then profiles one more (serving prefill,
+``last_only``).  ``chip_smoke.py`` drives rwkv6-7b's forward at the same
+``BATCH`` and ``SEQ``.  Prints the device time of K3 (RWKV-6), K1 and K4
+(MoE), the matrix products and the rest, and the device's idle share:
 the part of the forward's wall window (host clock, ending in a
 synchronisation) in which no kernel or copy ran.  Writes the per-kernel
 table and the same summary as JSON under ``--out`` (default
@@ -17,6 +20,7 @@ table and the same summary as JSON under ``--out`` (default
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -35,12 +39,18 @@ WINDOW = "profiled_forward"
 MATMUL_MARKS = ("gemm", "nvjet", "cutlass", "xmma", "splitk")
 
 
+PARTS = (("K3 (wkv6)", ("wkv6_kernel",)),
+         ("K1 (grouped FFN)", ("ffn_up_kernel", "ffn_down_kernel")),
+         ("K4 (scheduler)", ("microep_sched_kernel",)),
+         ("matrix products", MATMUL_MARKS))
+
+
 def part_of(kernel: str) -> str:
     """The part of the forward a device kernel belongs to, by its name."""
-    if "wkv6_kernel" in kernel:
-        return "K3 (wkv6)"
-    if any(m in kernel.lower() for m in MATMUL_MARKS):
-        return "matrix products"
+    low = kernel.lower()
+    for part, marks in PARTS:
+        if any(m.lower() in low for m in marks):
+            return part
     return "rest"
 
 
@@ -126,13 +136,18 @@ def card_line() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
+    ap.add_argument("--arch", default=ARCH)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     args = ap.parse_args(argv)
 
     device = dec.require_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    cfg = get_config(ARCH)
+    cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     model = dec.init_params(cfg, seed=SEED, device=device)
     g = torch.Generator(device=model.device)
     g.manual_seed(SEED + 1)
@@ -147,10 +162,12 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
 
     split, by_kernel, _ = profile_device(run, part_of)
-    summary = {"card": card, "arch": cfg.name, "batch": BATCH, "seq": SEQ,
-               "last_only": True, **split}
+    summary = {"card": card, "arch": cfg.name, "layers": cfg.num_layers,
+               "batch": BATCH, "seq": SEQ, "last_only": True,
+               **split}
     print(card)
-    print(f"{cfg.name}, {BATCH} x {SEQ} tokens, last_only: "
+    print(f"{cfg.name}, {cfg.num_layers} layers, {BATCH} x {SEQ} tokens, "
+          f"last_only: "
           f"window {summary['window_ms']:.3f} ms, device time "
           f"{summary['device_ms']:.3f} ms in {summary['kernel_launches']} "
           f"device events, idle share {summary['idle_share']:.4f}")

@@ -2,10 +2,13 @@
 ``torch.profiler`` run on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train [--out DIR]
+      [--arch NAME] [--layers N]
 
-Builds olmoe-1b-7b at full width with its depth cut to ``LAYERS`` (as
-``chip_smoke.py`` phase 12 does: f32 master, gradients and two Adam moments
-take 16 B a parameter) with f32 weights drawn on the card from ``SEED``
+Builds ``--arch`` (default olmoe-1b-7b; any config the training step runs:
+global attention, dense or MoE of any ``etp``) at full width with its depth
+cut to ``--layers`` (default ``LAYERS``, as ``chip_smoke.py`` phase 12 does:
+f32 master, gradients and two Adam moments take 16 B a parameter; pass 0
+for the full depth) with f32 weights drawn on the card from ``SEED``
 (TF32 off), takes one step of ``BATCH`` x ``SEQ`` tokens of the synthetic
 stream in ``N_MICRO`` micro-batches as a warm-up, then profiles one more.
 Prints the device time of K1, K1b, K4, the matrix products (cuBLAS), the
@@ -50,13 +53,18 @@ def part_of(kernel: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
+    ap.add_argument("--arch", default=ARCH)
+    ap.add_argument("--layers", type=int, default=LAYERS,
+                    help="cut the depth to this many layers (0: full depth)")
     args = ap.parse_args(argv)
 
     device = dec.require_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    cfg = dataclasses.replace(get_config(ARCH), num_layers=LAYERS)
+    cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     state = {"ts": init_train_state(cfg, seed=SEED, device=device)}
     step = make_train_step(cfg, n_micro=N_MICRO, device=device)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ, batch=BATCH,
@@ -69,11 +77,11 @@ def main(argv=None) -> int:
 
     run(0)                                       # warm-up
     split, by_kernel, kernels = profile_device(lambda: run(1), part_of)
-    summary = {"card": card, "arch": cfg.name, "layers": LAYERS,
+    summary = {"card": card, "arch": cfg.name, "layers": cfg.num_layers,
                "batch": BATCH, "seq": SEQ, "n_micro": N_MICRO,
                "loss": state["loss"], **split}
     print(card)
-    print(f"{cfg.name}, {LAYERS} layers, {BATCH} x {SEQ} tokens in "
+    print(f"{cfg.name}, {cfg.num_layers} layers, {BATCH} x {SEQ} tokens in "
           f"{N_MICRO} micro-batches: window {summary['window_ms']:.3f} ms, "
           f"device time {summary['device_ms']:.3f} ms in "
           f"{summary['kernel_launches']} device events, idle share "

@@ -2,7 +2,8 @@
 and single-device): Poisson or replay traffic feeds the slot/KV-budget batch
 manager; one decode step per tick interleaves prefill and decode and re-runs
 the MicroEP scheduler in every MoE layer on the live batch's expert loads
-(an RWKV-6 decoder carries each slot's recurrent state through K3s instead).
+(an RWKV-6 decoder carries each slot's recurrent state through K3s instead;
+a dense decoder has no MoE layer and reports no balance).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
       --requests 4 --prompt-len 8 --gen 8 --max-batch 4
@@ -10,6 +11,10 @@ the MicroEP scheduler in every MoE layer on the live batch's expert loads
       --arch paper-gpt-32x1.3b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+      --smoke --device cpu           # dense; also gemma-2b
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch paper-mixtral-16x2b --smoke --etp 2 --device cpu
 
 Runs on the CUDA device unless ``--device cpu`` is given; weights are f32,
 random from ``--seed``, drawn on the device.
@@ -31,6 +36,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--etp", type=int, default=None,
+                    help="expert tensor parallelism (default the config's; "
+                         "--smoke sets 1)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda)")
     ap.add_argument("--traffic", default="poisson",
@@ -52,6 +62,10 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    if args.etp is not None:
+        cfg = dataclasses.replace(cfg, etp=args.etp)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     # grow the default cache to fit the requested lengths, but never
     # override an explicit --max-seq / --kv-budget
     if (serve_cfg.max_seq == ServeConfig().max_seq

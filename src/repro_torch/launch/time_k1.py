@@ -53,26 +53,37 @@ def random_weights(g: torch.Generator, s: int, h: int, f: int, device):
             rnd(s, f, h, scale=f ** -0.5))
 
 
+def expert_shape(cfg):
+    """(S, H, F) of one MoE layer's expert weights: the E·etp virtual
+    experts of moe_d_ff / etp columns each."""
+    etp = max(cfg.etp, 1)
+    return cfg.num_experts * etp, cfg.d_model, cfg.moe_d_ff // etp
+
+
 def decode_flat_buffer(g: torch.Generator, cfg, batch: int, device):
     """The flat buffer, group starts and ends that the serving path builds
-    for one MoE layer of a ``batch``-token decode step of ``cfg``."""
+    for one MoE layer of a ``batch``-token decode step of ``cfg``: top_k
+    experts a token, each visited in all its ``etp`` shards."""
     from ..engine import MicroEPEngine
+    from ..models.decoder import expand_router_etp
     from ..moe import dispatch as D
     from ..moe.router import top_k_gating
+    etp = max(cfg.etp, 1)
+    s, k = cfg.num_experts * etp, cfg.top_k * etp
     # the single-device group and layout of decoder.local_moe_apply
-    spec = MicroEPEngine.build(cfg.num_experts, (1, 1), device=device
-                               ).moe_spec(batch, cfg.top_k, bm=BM)
+    spec = MicroEPEngine.build(s, (1, 1), device=device).moe_spec(
+        batch, k, bm=BM)
     st = spec.statics
     x = torch.randn((batch, cfg.d_model), generator=g, device=device)
     router = torch.randn((cfg.d_model, cfg.num_experts), generator=g,
                          device=device) * cfg.d_model ** -0.5
-    r = top_k_gating(x, router, cfg.top_k)
+    r = expand_router_etp(top_k_gating(x, router, cfg.top_k), etp)
     ex = r.expert_ids.reshape(-1)
-    cnt = torch.zeros(cfg.num_experts + 1, dtype=torch.int64,
+    cnt = torch.zeros(s + 1, dtype=torch.int64,
                       device=device).scatter_add_(0, ex, torch.ones_like(ex))
-    sched = spec.scheduler(cnt[:cfg.num_experts, None])
+    sched = spec.scheduler(cnt[:s, None])
     plan = D.make_plan(st, ex, sched.flow, 0)
-    flat = D.dispatch(st, plan, x.repeat_interleave(cfg.top_k, dim=0))
+    flat = D.dispatch(st, plan, x.repeat_interleave(k, dim=0))
     return flat, plan.group_start, plan.group_end
 
 

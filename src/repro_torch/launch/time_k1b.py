@@ -13,7 +13,10 @@ nvcc each, started together.  Draws the flat buffer that the training path
 builds for one MoE layer of one micro-batch of ``chip_smoke.py``'s training
 phase (8 × 512 tokens in 2 micro-batches, so 2048 tokens routed top-8 over
 64 experts; bm 8, N 49 664 rows of which ~16 384 lie in groups; H 2048, F
-1024), f32 weights and a random output gradient (seed 17).  Checks K1
+1024), f32 weights and a random output gradient (seed 17).  ``measure``
+also takes paper-mixtral-16x2b's geometry (``ARCHS``): 2048 tokens routed
+top-2 over 16 experts, each visited in both of its tensor-parallel shards,
+so 8192 rows over 32 virtual experts of H 2048, F 4096.  Checks K1
 against ``ref.grouped_ffn_flat_ref`` and this checkout's K1b against
 ``ref.grouped_ffn_flat_bwd_ref`` (every other build's errors are reported)
 elementwise within rtol 1e-4 plus an atol of 1e-5 of the output's largest
@@ -48,10 +51,11 @@ from ..kernels.build import build_library
 from ..kernels.grouped_matmul import ACTIVATIONS, grouped_ffn_flat_bwd_cuda
 from .profile_forward import ROOT, profile_device
 from .time_k1 import (H100_BYTES_PER_S, H100_F32_FLOPS, decode_flat_buffer,
-                      k1_bound, random_weights)
+                      expert_shape, k1_bound, random_weights)
 from .time_k4 import cuda_ms
 
 TOKENS = 8 * 512 // 2   # one micro-batch: 8 × 512 tokens, n_micro 2
+ARCHS = ("olmoe-1b-7b", "paper-mixtral-16x2b")   # the trained MoE geometries
 BM = 8                  # the G=1 layout's row tile (decoder.local_moe_apply)
 TOL = 1e-4          # relative, elementwise
 ATOL_OF_MAX = 1e-5  # absolute, as a share of the output's largest magnitude
@@ -101,14 +105,14 @@ def max_err(label: str, got: torch.Tensor, expect: torch.Tensor) -> float:
     return err.max().item()
 
 
-def training_inputs(device):
+def training_inputs(device, arch: str = ARCHS[0]):
     """(x, group_start, group_end, (Wg, Wu, Wd), dout) of one MoE layer of
-    one micro-batch at the training geometry, drawn from ``SEED``."""
-    cfg = get_config("olmoe-1b-7b")
+    one micro-batch at ``arch``'s training geometry, drawn from ``SEED``."""
+    cfg = get_config(arch)
     g = torch.Generator(device=device)
     g.manual_seed(SEED)
     x, start, end = decode_flat_buffer(g, cfg, TOKENS, device)
-    w = random_weights(g, cfg.num_experts, cfg.d_model, cfg.moe_d_ff, device)
+    w = random_weights(g, *expert_shape(cfg), device)
     dout = torch.randn(x.shape, generator=g, device=device)
     return x, start, end, w, dout
 
@@ -133,12 +137,11 @@ def float64_guard(x, start, end, w, dout, got, plain=None,
     return res
 
 
-def measure(device, timed: bool = True) -> dict:
-    """Check (and time) K1 and K1b at the training geometry; raises
+def measure(device, timed: bool = True, arch: str = ARCHS[0]) -> dict:
+    """Check (and time) K1 and K1b at ``arch``'s training geometry; raises
     AssertionError on a mismatch."""
-    cfg = get_config("olmoe-1b-7b")
-    h, f, s = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
-    x, start, end, w, dout = training_inputs(device)
+    s, h, f = expert_shape(get_config(arch))
+    x, start, end, w, dout = training_inputs(device, arch)
     s32, e32 = start.to(torch.int32), end.to(torch.int32)
 
     out = ops.grouped_ffn_flat(x, start, end, *w, bm=BM)
@@ -158,7 +161,8 @@ def measure(device, timed: bool = True) -> dict:
     del again, out
     f64 = float64_guard(x, start, end, w, dout, got, plain)
     counts = end - start
-    res = {"rows": int(counts.sum()), "n": x.shape[0],
+    res = {"arch": arch, "s": s, "h": h, "f": f,
+           "rows": int(counts.sum()), "n": x.shape[0],
            "active": int((counts > 0).sum()), "k1_err": k1_err,
            "k1b_err": max(errs.values()), "k1b_errs": errs, "f64": f64,
            "k1_bound": k1_bound(x, start, end, s, h, f, BM),
@@ -179,8 +183,9 @@ def measure(device, timed: bool = True) -> dict:
 def describe(r: dict) -> str:
     b1, by1 = r["k1_bound"][:2]
     b2, by2, _, fl2, ffma = r["k1b_bound"]
-    lines = [f"training geometry: N {r['n']}, {r['rows']} rows in "
-             f"{r['active']} groups; K1 max abs err {r['k1_err']:.3e}, K1b "
+    lines = [f"{r['arch']} training geometry: N {r['n']}, {r['rows']} rows "
+             f"in {r['active']} of {r['s']} groups, H {r['h']}, F {r['f']}; "
+             f"K1 max abs err {r['k1_err']:.3e}, K1b "
              + ", ".join(f"{k} {v:.3e}" for k, v in r["k1b_errs"].items())
              + f" (rtol {TOL}, atol {ATOL_OF_MAX} of max |ref|); K1b repeats "
              f"bit for bit, dx zero outside the groups",
@@ -301,7 +306,8 @@ def main(argv=None) -> int:
         built = dict(zip(jobs, pool.map(lambda job: job(), jobs.values())))
     device = torch.device("cuda", 0)
     print(card)
-    print(describe(measure(device)))
+    for arch in ARCHS:
+        print(describe(measure(device, arch=arch)))
     libs = {name: grouped_matmul.bind_bwd(path)
             for name, path in built.items() if name != "K1"}
     summary = dict(compare(libs, device), card=card)

@@ -1,9 +1,15 @@
 """Training driver on one device (twin of the single-device branch of
 ``repro.launch.train``): synthetic learnable data, real MicroEP scheduling
 per micro-batch in every MoE layer, AdamW with a warmup-cosine schedule.
+Dense and MoE global-attention decoders, MoE with any expert tensor
+parallelism (``--etp``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
       --smoke --device cpu --steps 4 --batch 4 --seq 16
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
+      --smoke --device cpu --steps 4 --batch 4 --seq 16
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch paper-mixtral-16x2b --smoke --etp 2 --device cpu --steps 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
       --smoke --steps 20 --batch 8 --seq 128
 
@@ -15,6 +21,7 @@ paths not ported yet, and are refused with an error.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 
@@ -48,6 +55,11 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced same-family config")
+    ap.add_argument("--etp", type=int, default=None,
+                    help="expert tensor parallelism (default the config's; "
+                         "--smoke sets 1)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda)")
     ap.add_argument("--steps", type=int, default=100)
@@ -75,6 +87,10 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    if args.etp is not None:
+        cfg = dataclasses.replace(cfg, etp=args.etp)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     opt_cfg = AdamWConfig(lr=args.lr)
     ts = init_train_state(cfg, seed=args.seed, device=args.device)

@@ -1,28 +1,34 @@
 """The decoder (twin of ``repro.models.decoder``): the decode step, the
-full-sequence forward and the training loss of attention + MicroEP MoE
-decoders, and the decode step and full-sequence forward of RWKV-6
-decoders.
+full-sequence forward and the training loss of global-attention decoders,
+dense or MicroEP MoE, and the decode step and full-sequence forward of
+RWKV-6 decoders.
 
 The MoE dispatch runs the full MicroEP machinery on the degenerate
 single-device group (G=1, ``local_moe_apply``): top-k gating, counts, the
 warm-started LP water-fill, rounding, Algorithm 1 routing, packed dispatch,
 the grouped FFN (K1 on a CUDA device) and combine, in every MoE layer of
 every decode step and of every micro-batch of the full-sequence forward;
-its gradient goes through K1b on a CUDA device.  The full-sequence forward
-(serving prefill, evaluation, training) runs every RWKV-6 block's
-recurrence through K3 on a CUDA device, and the decode step through K3s
-(K3 with the slot's state carried in and out).  The reference's stacked
+its gradient goes through K1b on a CUDA device.  Expert tensor parallelism
+(``etp`` > 1) holds each expert as ``etp`` virtual experts of
+``moe_d_ff / etp`` columns, and a token visits every shard of each expert
+it is routed to (``expand_router_etp``).  A dense block's FFN is plain
+matrix products, as in the reference.  The full-sequence forward (serving
+prefill, evaluation, training) runs every RWKV-6 block's recurrence
+through K3 on a CUDA device, and the decode step through K3s (K3 with the
+slot's state carried in and out).  The reference's stacked
 ``layers_scan`` parameters are one module per layer here, and its
 ``lax.scan`` over layers a Python loop.
 
 Supported: ``decode_step``, ``forward`` and ``loss_fn`` on decoders whose
-every layer is a global-attention + MoE block (``pattern == ("attn",)``, no
-sliding window, no M-RoPE, no expert tensor parallelism) — olmoe-1b-7b and
-paper-gpt-32x1.3b; ``decode_step`` and ``forward`` on decoders whose every
-layer is an RWKV-6 block (``pattern == ("rwkv",)``, no MoE) — rwkv6-7b.
-Parameters are created with ``requires_grad=False``: serving builds no
-graph, and training turns them on with ``model.requires_grad_(True)``.
-RWKV-6 training (K3's backward) is a later slice.
+every layer is a global-attention block (``pattern == ("attn",)``, no
+sliding window, no M-RoPE, no frontend stub) with a dense FFN or an MoE of
+any ``etp`` — olmoe-1b-7b, paper-gpt-32x1.3b, paper-mixtral-16x2b,
+dbrx-132b, qwen1.5-0.5b, gemma-2b; ``decode_step`` and ``forward`` on
+decoders whose every layer is an RWKV-6 block (``pattern == ("rwkv",)``,
+no MoE) — rwkv6-7b.  Parameters are created with ``requires_grad=False``:
+serving builds no graph, and training turns them on with
+``model.requires_grad_(True)``.  RWKV-6 training (K3's backward) is a later
+slice.
 """
 from __future__ import annotations
 
@@ -39,10 +45,11 @@ from ..core.solver import SolverState
 from ..engine import MicroEPEngine
 from ..moe.experts import ExpertParams
 from ..moe.layer import MoEMetrics, moe_ffn
-from ..moe.router import top_k_gating
+from ..moe.router import RouterOut, top_k_gating
 from .layers.attention import (AttnConfig, Attention, KVCache, attention,
                                decode_attention, init_attention,
                                init_kv_cache)
+from .layers.ffn import FFN, ffn, init_ffn
 from .layers.norms import Norm
 from .layers.rwkv6 import (ChannelMix, RWKVState, TimeMix, init_rwkv6,
                            init_rwkv6_channel)
@@ -52,7 +59,7 @@ __all__ = ["require_device", "check_servable", "check_forward",
            "load_reference_params", "reference_tree", "forward", "lm_loss",
            "lm_loss_chunked", "loss_fn", "init_solver_states",
            "init_decode_state", "decode_step", "reset_decode_slots",
-           "local_moe_apply", "n_moe_layers"]
+           "expand_router_etp", "local_moe_apply", "n_moe_layers"]
 
 
 def require_device(device) -> torch.device:
@@ -74,40 +81,51 @@ def _is_rwkv_decoder(cfg: ArchConfig) -> bool:
     return _is_rwkv(cfg) and not cfg.moe and not cfg.frontend_stub
 
 
+def _is_global_attention(cfg: ArchConfig) -> bool:
+    return bool(tuple(cfg.pattern) == ("attn",) and not cfg.window
+                and not cfg.mrope_sections and not cfg.frontend_stub)
+
+
+def _is_dense_attention(cfg: ArchConfig) -> bool:
+    return not cfg.moe and _is_global_attention(cfg)
+
+
 def _is_moe_attention(cfg: ArchConfig) -> bool:
-    return bool(cfg.moe and tuple(cfg.pattern) == ("attn",)
-                and not cfg.window and not cfg.mrope_sections
-                and max(cfg.etp, 1) == 1 and not cfg.frontend_stub)
+    return bool(cfg.moe) and _is_global_attention(cfg)
+
+
+def _is_attention(cfg: ArchConfig) -> bool:
+    return _is_dense_attention(cfg) or _is_moe_attention(cfg)
+
+
+_ATTENTION = ("global-attention decoders, dense or MoE of any etp (pattern "
+              "('attn',), no window, no M-RoPE, no frontend stub)")
 
 
 def check_servable(cfg: ArchConfig) -> None:
     """Raise unless the decode step (serving) runs ``cfg``."""
-    if not _is_rwkv_decoder(cfg) and not _is_moe_attention(cfg):
+    if not _is_rwkv_decoder(cfg) and not _is_attention(cfg):
         raise ValueError(
             f"{cfg.name}: the port serves RWKV-6 decoders (pattern "
-            f"('rwkv',), no MoE) and global-attention MoE decoders (pattern "
-            f"('attn',), no window, no M-RoPE, etp 1); other blocks are not "
+            f"('rwkv',), no MoE) and {_ATTENTION}; other blocks are not "
             f"ported yet")
 
 
 def check_forward(cfg: ArchConfig) -> None:
     """Raise unless the full-sequence forward runs ``cfg``."""
-    if not _is_rwkv_decoder(cfg) and not _is_moe_attention(cfg):
+    if not _is_rwkv_decoder(cfg) and not _is_attention(cfg):
         raise ValueError(
             f"{cfg.name}: the port's full-sequence forward runs RWKV-6 "
-            f"decoders (pattern ('rwkv',), no MoE) and global-attention MoE "
-            f"decoders (pattern ('attn',), no window, no M-RoPE, etp 1); "
-            f"the attention prefill of other blocks is not ported yet")
+            f"decoders (pattern ('rwkv',), no MoE) and {_ATTENTION}; the "
+            f"attention prefill of other blocks is not ported yet")
 
 
 def check_trainable(cfg: ArchConfig) -> None:
     """Raise unless the training step runs ``cfg``."""
-    if not _is_moe_attention(cfg):
+    if not _is_attention(cfg):
         raise ValueError(
-            f"{cfg.name}: the port trains global-attention MoE decoders "
-            f"(pattern ('attn',), no window, no M-RoPE, etp 1); training "
-            f"RWKV-6 needs K3's backward and other blocks are not ported "
-            f"yet")
+            f"{cfg.name}: the port trains {_ATTENTION}; training RWKV-6 "
+            f"needs K3's backward and other blocks are not ported yet")
 
 
 def _attn_cfg(cfg: ArchConfig) -> AttnConfig:
@@ -122,18 +140,25 @@ def _moe_activation(cfg: ArchConfig) -> str:
     return "swiglu" if cfg.ffn_kind == "gelu_mlp" else cfg.ffn_kind
 
 
+def _etp(cfg: ArchConfig) -> int:
+    return max(cfg.etp, 1)
+
+
 class MoE(nn.Module):
-    """Router [H, E] and canonical expert weights [E, H, F] / [E, F, H]."""
+    """Router [H, E] and the canonical weights of the E·etp virtual experts,
+    [E·etp, H, F] / [E·etp, F, H] with F = moe_d_ff / etp: virtual expert
+    e·etp + j is shard j of expert e."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
         super().__init__()
-        e, h, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+        etp = _etp(cfg)
+        e, h, f = cfg.num_experts * etp, cfg.d_model, cfg.moe_d_ff // etp
 
         def p(*shape):
             return nn.Parameter(torch.zeros(*shape, device=device),
                                 requires_grad=False)
 
-        self.router = p(h, e)
+        self.router = p(h, cfg.num_experts)
         self.w_gate, self.w_up, self.w_down = p(e, h, f), p(e, h, f), \
             p(e, f, h)
 
@@ -143,25 +168,41 @@ class MoE(nn.Module):
 
 
 class Block(nn.Module):
+    """A global-attention block: attention, then a dense FFN (``ffn``) or
+    an MoE (``moe``)."""
+
     def __init__(self, cfg: ArchConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
         self.ln1 = Norm(cfg.d_model, cfg.norm, device=device)
         self.attn = Attention(_attn_cfg(cfg), device=device)
         self.ln2 = Norm(cfg.d_model, cfg.norm, device=device)
-        self.moe = MoE(cfg, device=device)
+        if cfg.moe:
+            self.moe = MoE(cfg, device=device)
+        else:
+            self.ffn = FFN(cfg.d_model, cfg.d_ff, cfg.ffn_kind, device=device)
+
+    def mlp(self, h: torch.Tensor, state: Optional[SolverState] = None,
+            valid: Optional[torch.Tensor] = None):
+        """The block's FFN on ln2's output h [B, T, dm] -> (out [B, T, dm],
+        MoEMetrics or None for a dense FFN, the MoE layer's new solver
+        state).  ``valid`` (bool[B]) keeps rows out of MoE routing."""
+        if not self.cfg.moe:
+            return ffn(self.ffn, h, self.cfg.ffn_kind), None, state
+        b, t, d = h.shape
+        rows_valid = None if valid is None else valid.repeat_interleave(t)
+        h2d, metrics, state = local_moe_apply(
+            self.moe, h.reshape(b * t, d), self.cfg, state, valid=rows_valid)
+        return h2d.reshape(b, t, d), metrics, state
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 state: Optional[SolverState] = None):
-        """The full sequence: x [B, T, dm] -> (x [B, T, dm], MoEMetrics,
-        the MoE layer's new solver state)."""
+        """The full sequence: x [B, T, dm] -> (x [B, T, dm], MoEMetrics or
+        None, the MoE layer's new solver state)."""
         x = x + attention(self.attn, _attn_cfg(self.cfg), self.ln1(x),
                           positions)
-        h = self.ln2(x)
-        b, t, d = h.shape
-        h2d, metrics, state = local_moe_apply(self.moe, h.reshape(b * t, d),
-                                              self.cfg, state)
-        return x + h2d.reshape(b, t, d), metrics, state
+        h, metrics, state = self.mlp(self.ln2(x), state)
+        return x + h, metrics, state
 
 
 class RWKVBlock(nn.Module):
@@ -188,7 +229,7 @@ class RWKVBlock(nn.Module):
 
 class Decoder(nn.Module):
     """The model, in f32 (as the reference's single-device session):
-    embedding, one block per layer (:class:`Block` for attention + MoE,
+    embedding, one block per layer (:class:`Block` for attention,
     :class:`RWKVBlock` for RWKV-6), final norm and an untied head when the
     config has one.  Weights start at zero; fill them with
     :func:`init_params` or :func:`load_reference_params`."""
@@ -227,7 +268,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> Decoder:
     device = model.device
     g = torch.Generator(device=device)
     g.manual_seed(seed)
-    dm, f = cfg.d_model, cfg.moe_d_ff
+    dm, f = cfg.d_model, cfg.moe_d_ff // _etp(cfg)
     _randn_(model.embed, g, dm ** -0.5)
     sg = (2.0 / (dm + f)) ** 0.5
     for blk in model.blocks:
@@ -236,6 +277,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> Decoder:
             blk.chan = init_rwkv6_channel(dm, cfg.d_ff, g, device=device)
             continue
         blk.attn = init_attention(_attn_cfg(cfg), g, device=device)
+        if not cfg.moe:
+            blk.ffn = init_ffn(dm, cfg.d_ff, cfg.ffn_kind, g, device=device)
+            continue
         _randn_(blk.moe.router, g, dm ** -0.5)
         for w in (blk.moe.w_gate, blk.moe.w_up, blk.moe.w_down):
             _randn_(w, g, sg)
@@ -273,9 +317,11 @@ def load_reference_params(params_np: dict, cfg: ArchConfig,
     layout ``repro.models.decoder.init_params(..., layout="scan")`` makes):
     "embed", "final_norm", "layers_scan" (stacked [reps, ...]),
     "layers_rem" and an optional "head"; an attention block holds "ln1",
-    "ln2", "attn" and "moe" = {"router", "experts": (w_gate, w_up,
-    w_down)}, an RWKV-6 block "ln1", "ln2", "time" (its "gn" a
-    {"scale", "bias"} tree) and "chan"."""
+    "ln2", "attn" and either "moe" = {"router", "experts": (w_gate, w_up,
+    w_down)} (the E·etp virtual experts) or "ffn" = {"w_gate", "w_up",
+    "w_down"}; an RWKV-6 block "ln1", "ln2", "time" (its "gn" a
+    {"scale", "bias"} tree) and "chan".  A tree of another depth or a
+    leaf of another shape is refused."""
     model = Decoder(cfg, device=device)
 
     def put(dst: torch.Tensor, a) -> None:
@@ -311,6 +357,9 @@ def load_reference_params(params_np: dict, cfg: ArchConfig,
             put_module(blk.chan, tree["chan"])
             continue
         put_module(blk.attn, tree["attn"])
+        if not cfg.moe:
+            put_module(blk.ffn, tree["ffn"])
+            continue
         put(blk.moe.router, tree["moe"]["router"])
         wg, wu, wd = tree["moe"]["experts"]
         put(blk.moe.w_gate, wg)
@@ -375,9 +424,13 @@ def reference_tree(model: Decoder,
             tree["chan"] = nested(f"{pre}.chan", blk.chan)
         else:
             tree["attn"] = nested(f"{pre}.attn", blk.attn)
-            tree["moe"] = {"router": get(f"{pre}.moe.router"),
-                           "experts": tuple(get(f"{pre}.moe.{w}") for w in
-                                            ("w_gate", "w_up", "w_down"))}
+            if not cfg.moe:
+                tree["ffn"] = nested(f"{pre}.ffn", blk.ffn)
+            else:
+                tree["moe"] = {"router": get(f"{pre}.moe.router"),
+                               "experts": tuple(
+                                   get(f"{pre}.moe.{w}")
+                                   for w in ("w_gate", "w_up", "w_down"))}
         blocks.append(tree)
     out = {"embed": get("embed"),
            "final_norm": norm("final_norm", model.final_norm)}
@@ -422,10 +475,11 @@ def forward(model: Decoder, batch: dict,
 
     ``solver_states`` (from :func:`init_solver_states`) warm-starts every
     MoE layer's LP and comes back advanced; None solves cold and returns
-    the layers' new states.  A decoder without MoE layers returns
-    ``solver_states`` as given.  ``last_only`` computes logits for the final
-    position only ([B, 1, V], serving prefill); ``return_hidden`` returns
-    the final-normed hidden state [B, T, dm] instead of logits."""
+    the layers' new states.  A decoder without MoE layers (dense or
+    RWKV-6) returns ``solver_states`` as given.  ``last_only`` computes
+    logits for the final position only ([B, 1, V], serving prefill);
+    ``return_hidden`` returns the final-normed hidden state [B, T, dm]
+    instead of logits."""
     cfg = model.cfg
     check_forward(cfg)
     tokens = batch["tokens"]
@@ -444,6 +498,8 @@ def forward(model: Decoder, batch: dict,
             x, m, st = blk(x, positions, st)
             acc = _accum(acc, m)
             new_states.append(st)
+        if not cfg.moe:
+            new_states = solver_states
     x = model.final_norm(x)
     if return_hidden:
         return x, acc, new_states
@@ -510,23 +566,47 @@ def loss_fn(model: Decoder, batch: dict,
 # --------------------------------------------------------------------------
 
 
+def expand_router_etp(r: RouterOut, etp: int) -> RouterOut:
+    """Virtual-expert expansion for expert tensor parallelism.
+
+    Expert e is held as ``etp`` shards, virtual experts e·etp + j with
+    moe_d_ff / etp columns each; a token routed to e visits every shard,
+    and the combine's sum over the K·etp rows puts the full down-projection
+    back together from the shards' partial sums.  The ids come in (k, j)
+    order and each gate weight is repeated ``etp`` times; the aux and z
+    losses stay those of the E real experts.  A pad row (id E) becomes ids
+    E·etp + j, all at or past the virtual pad id E·etp."""
+    if etp <= 1:
+        return r
+    t, k = r.expert_ids.shape
+    ids = (r.expert_ids[:, :, None] * etp
+           + torch.arange(etp, device=r.expert_ids.device)[None, None, :]
+           ).reshape(t, k * etp)
+    gate_w = r.gate_w.repeat_interleave(etp, dim=1)
+    return r._replace(expert_ids=ids, gate_w=gate_w)
+
+
 @functools.lru_cache(maxsize=32)
-def _local_moe_engine(num_experts: int, device: torch.device
+def _local_moe_engine(num_virtual: int, device: torch.device
                       ) -> MicroEPEngine:
     """Degenerate single-device MicroEP group (G=1): all slots local."""
-    return MicroEPEngine.build(num_experts, (1, 1), placement="vanilla",
+    return MicroEPEngine.build(num_virtual, (1, 1), placement="vanilla",
                                device=device)
 
 
 def local_moe_apply(moe: MoE, x2d: torch.Tensor, cfg: ArchConfig,
                     state: Optional[SolverState],
                     valid: Optional[torch.Tensor] = None):
-    """One MoE layer on the G=1 group -> (out [T, H], MoEMetrics, state).
-    The flat buffer is laid out with bm=8, and K1 tiles it with the same bm."""
-    spec = _local_moe_engine(cfg.num_experts, x2d.device).moe_spec(
-        int(x2d.shape[0]), cfg.top_k, activation=_moe_activation(cfg),
-        capacity_factor=2.0, bm=8)
+    """One MoE layer on the G=1 group -> (out [T, H], MoEMetrics, state):
+    top-k gating over the E experts, expanded to the E·etp virtual experts
+    and top_k·etp rows a token.  The flat buffer is laid out with bm=8, and
+    K1 tiles it with the same bm."""
+    etp = _etp(cfg)
+    spec = _local_moe_engine(cfg.num_experts * etp, x2d.device).moe_spec(
+        int(x2d.shape[0]), cfg.top_k * etp,
+        activation=_moe_activation(cfg), capacity_factor=2.0, bm=8)
     r = top_k_gating(x2d, moe.router, cfg.top_k, valid=valid)
+    r = expand_router_etp(r, etp)
     return moe_ffn(spec, x2d, moe.router, moe.experts, state=state,
                    router_out=r)
 
@@ -540,12 +620,17 @@ def n_moe_layers(cfg: ArchConfig) -> int:
 
 
 def _zero_moe(cfg: ArchConfig, device) -> MoEMetrics:
+    """Zero metrics: ``expert_load`` is [E·etp] for an MoE config and a
+    scalar for one without MoE layers, as the reference's."""
     z = torch.zeros((), device=device)
-    return MoEMetrics(z, z, z, z, z, torch.zeros(cfg.num_experts,
-                                                 device=device))
+    load = (torch.zeros(cfg.num_experts * _etp(cfg), device=device)
+            if cfg.moe else z)
+    return MoEMetrics(z, z, z, z, z, load)
 
 
-def _accum(acc: MoEMetrics, m: MoEMetrics) -> MoEMetrics:
+def _accum(acc: MoEMetrics, m: Optional[MoEMetrics]) -> MoEMetrics:
+    if m is None:                       # a dense block
+        return acc
     return MoEMetrics(acc.aux_loss + m.aux_loss, acc.z_loss + m.z_loss,
                       acc.max_load + m.max_load, acc.balance + m.balance,
                       acc.overflow + m.overflow.float(),
@@ -558,9 +643,13 @@ def _accum(acc: MoEMetrics, m: MoEMetrics) -> MoEMetrics:
 
 
 def init_solver_states(cfg: ArchConfig, num_replicas: int,
-                       device="cuda") -> List[SolverState]:
-    """Warm-start carry for every MoE layer ([E, R] zeros)."""
-    return [SolverState(x=torch.zeros((cfg.num_experts, num_replicas),
+                       device="cuda") -> Optional[List[SolverState]]:
+    """Warm-start carry for every MoE layer ([E·etp, R] zeros); None for a
+    decoder without MoE layers."""
+    if not cfg.moe:
+        return None
+    return [SolverState(x=torch.zeros((cfg.num_experts * _etp(cfg),
+                                       num_replicas),
                                       dtype=torch.float32, device=device))
             for _ in range(n_moe_layers(cfg))]
 
@@ -600,7 +689,8 @@ def decode_step(model: Decoder, state: dict, batch: dict,
     ``active`` keeps inactive serving slots (pad tokens) out of MoE routing,
     capacity and the load metrics.  When ``state`` carries "solver" (from
     :func:`init_solver_states`) every MoE layer re-solves the LP on the live
-    batch's expert loads, warm-started from the previous step.  An RWKV-6
+    batch's expert loads, warm-started from the previous step.  A dense
+    block applies its FFN.  An RWKV-6
     block decodes from the slot's state (``RWKVBlock.decode``: K3s on a
     CUDA device); its metrics are zeros.  The input state is not
     modified."""
@@ -618,7 +708,6 @@ def decode_step(model: Decoder, state: dict, batch: dict,
         new_state["rwkv"] = new_rwkv
     else:
         acfg = _attn_cfg(cfg)
-        b = x.shape[0]
         active = batch.get("active")
         solver = state.get("solver")
         new_kv, new_solver = [], []
@@ -627,11 +716,9 @@ def decode_step(model: Decoder, state: dict, batch: dict,
             h, cache = decode_attention(blk.attn, acfg, h,
                                         state["kv"][i]._replace(length=pos))
             x = x + h
-            h = blk.ln2(x)
             st = None if solver is None else solver[i]
-            h2d, m, st = local_moe_apply(blk.moe, h.reshape(b, -1), cfg, st,
-                                         valid=active)
-            x = x + h2d.reshape(b, 1, -1)
+            h, m, st = blk.mlp(blk.ln2(x), st, valid=active)
+            x = x + h
             acc = _accum(acc, m)
             new_kv.append(cache)
             new_solver.append(st)

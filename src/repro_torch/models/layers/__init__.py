@@ -1,1 +1,1 @@
-"""Decoder layers: norms, rotary embeddings, attention."""
+"""Decoder layers: norms, rotary embeddings, attention, dense FFNs, RWKV-6."""

@@ -61,8 +61,9 @@ def moe_ffn(
     r = router_out if router_out is not None else top_k_gating(
         x, w_router, k, valid=valid)
 
-    # token-replica rows: [T*K]
-    ex = r.expert_ids.reshape(-1)
+    # token-replica rows: [T*K]; every pad id (E, or past it once expanded
+    # to virtual experts) becomes the one pad id E
+    ex = r.expert_ids.reshape(-1).clamp(max=st.num_experts)
     rows = x.repeat_interleave(k, dim=0)
     cnt = torch.zeros(st.num_experts + 1, dtype=torch.int64,
                       device=x.device).scatter_add_(0, ex, torch.ones_like(ex))

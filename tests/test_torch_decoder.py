@@ -2,8 +2,10 @@
 reference ``decode_step`` on the smoke configs, with the reference weights
 carried over by ``load_reference_params``: per-slot positions, an ``active``
 mask and ``reset_decode_slots`` included.  Logits within 1e-4 and the
-solver warm start (attention + MoE) or every layer's RWKV-6 state (rwkv6-7b)
-carried step to step."""
+solver warm start (attention + MoE, expert tensor parallelism included) or
+every layer's RWKV-6 state (rwkv6-7b) carried step to step; a dense decoder
+carries no solver state.  Also ``expand_router_etp`` against the
+reference's."""
 import dataclasses
 
 import jax
@@ -14,8 +16,11 @@ import torch
 
 from repro.configs import get_config
 from repro.models import decoder as rdec
+from repro.moe.router import top_k_gating as ref_top_k_gating
 from repro_torch.configs.base import ArchConfig as TorchArchConfig
 from repro_torch.models import decoder as tdec
+from repro_torch.moe.router import top_k_gating
+from torch_cases import DENSE_ETP_CASES
 
 B, MAX_SEQ = 3, 12
 
@@ -27,9 +32,11 @@ def _ref_solver_layers(state, cfg):
     return [x[r] for r in range(cfg.num_layers)]
 
 
-@pytest.mark.parametrize("arch", ["paper-gpt-32x1.3b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("arch", ["paper-gpt-32x1.3b", "olmoe-1b-7b",
+                                  *DENSE_ETP_CASES])
 def test_decode_step_matches_reference(arch):
-    ref_cfg = get_config(arch).smoke()
+    ref_cfg = (DENSE_ETP_CASES[arch]() if arch in DENSE_ETP_CASES
+               else get_config(arch).smoke())
     cfg = TorchArchConfig(**dataclasses.asdict(ref_cfg))
     params = rdec.init_params(jax.random.PRNGKey(3), ref_cfg)
     model = tdec.load_reference_params(
@@ -63,14 +70,45 @@ def test_decode_step_matches_reference(arch):
                                    rtol=1e-4, atol=1e-4, err_msg=f"step {i}")
         np.testing.assert_array_equal(state["pos"].numpy(),
                                       np.asarray(ref_state["pos"]))
-        for got, want in zip(state["solver"],
-                             _ref_solver_layers(ref_state, ref_cfg)):
-            np.testing.assert_allclose(got.x.numpy(), want, rtol=1e-5,
-                                       atol=1e-5)
-        np.testing.assert_allclose(m.expert_load.numpy(),
-                                   np.asarray(m_r.expert_load))
+        if not cfg.moe:                     # a dense decoder: no solver
+            assert state["solver"] is None and ref_state["solver"] is None
+        else:
+            layers = _ref_solver_layers(ref_state, ref_cfg)
+            assert len(state["solver"]) == len(layers) == cfg.num_layers
+            for got, want in zip(state["solver"], layers):
+                assert got.x.shape == want.shape == (
+                    cfg.num_experts * cfg.etp, 1)
+                np.testing.assert_allclose(got.x.numpy(), want, rtol=1e-5,
+                                           atol=1e-5)
+        np.testing.assert_array_equal(m.expert_load.numpy(),
+                                      np.asarray(m_r.expert_load))
         np.testing.assert_allclose(float(m.balance), float(m_r.balance),
                                    rtol=1e-6)
+
+
+@pytest.mark.parametrize("etp", [2, 4])
+def test_expand_router_etp_matches_reference(etp):
+    """Virtual-expert ids e·etp + j in (k, j) order, the gate weights
+    repeated, the aux and z losses those of the real experts; with a
+    masked row (the pad id expands past the virtual experts).  Random
+    router weights: no tied probabilities."""
+    rng = np.random.default_rng(etp)
+    x = rng.standard_normal((6, 32)).astype(np.float32)
+    w = (rng.standard_normal((32, 5)) * 32 ** -0.5).astype(np.float32)
+    valid = np.array([1, 1, 0, 1, 1, 1], bool)
+    r_ref = rdec.expand_router_etp(ref_top_k_gating(
+        jnp.asarray(x), jnp.asarray(w), 2, valid=jnp.asarray(valid)), etp)
+    r = tdec.expand_router_etp(top_k_gating(
+        torch.tensor(x), torch.tensor(w), 2, valid=torch.tensor(valid)), etp)
+    assert r.expert_ids.shape == (6, 2 * etp)
+    np.testing.assert_array_equal(r.expert_ids.numpy(),
+                                  np.asarray(r_ref.expert_ids))
+    np.testing.assert_allclose(r.gate_w.numpy(), np.asarray(r_ref.gate_w),
+                               rtol=1e-5)
+    for k in ("aux_loss", "z_loss"):
+        np.testing.assert_allclose(float(getattr(r, k)),
+                                   float(getattr(r_ref, k)), rtol=1e-5)
+    assert tdec.expand_router_etp(r, 1) is r
 
 
 def test_load_reference_params_rejects_wrong_depth():
@@ -81,6 +119,20 @@ def test_load_reference_params_rejects_wrong_depth():
     with pytest.raises(ValueError, match="layers"):
         tdec.load_reference_params(
             jax.tree_util.tree_map(np.asarray, params), deeper, device="cpu")
+
+
+@pytest.mark.parametrize("change", [dict(etp=2), dict(moe=False)],
+                         ids=["etp", "dense"])
+def test_load_reference_params_rejects_wrong_shape(change):
+    """A tree of full experts does not load into virtual experts, nor an
+    MoE tree into a dense decoder."""
+    ref_cfg = get_config("paper-mixtral-16x2b").smoke()
+    params = rdec.init_params(jax.random.PRNGKey(0), ref_cfg)
+    other = TorchArchConfig(**dataclasses.asdict(
+        dataclasses.replace(ref_cfg, **change)))
+    with pytest.raises((ValueError, KeyError)):
+        tdec.load_reference_params(
+            jax.tree_util.tree_map(np.asarray, params), other, device="cpu")
 
 
 @pytest.fixture(scope="module")

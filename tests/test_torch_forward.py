@@ -3,9 +3,13 @@ through ``repro_torch.launch.runtime.make_forward_fn``) against the
 reference ``forward`` on rwkv6-7b's smoke config (2 layers, d_model 256,
 4 heads × 64), with the reference weights carried over by the port's
 loader: full logits, the last position only and the LM loss; and the
-attention + MoE forward on olmoe-1b-7b's and paper-gpt-32x1.3b's smoke
-configs.  Also: the entry points run on ``cuda`` unless asked for the CPU,
-and the serving path refuses an RWKV-6 config with a clear error."""
+global-attention forward, MoE (olmoe-1b-7b, paper-gpt-32x1.3b, and
+paper-mixtral-16x2b with expert tensor parallelism 2) and dense
+(qwen1.5-0.5b, gemma-2b, paper-gpt-32x1.3b without MoE) on smoke configs,
+with the chunked LM loss of its hidden state.  Also: the entry points run
+on ``cuda`` unless asked for the CPU, and the serve, forward and train
+checks take the global-attention decoders and refuse the blocks not ported
+yet with a clear error."""
 import dataclasses
 
 import jax
@@ -21,6 +25,7 @@ from repro_torch.engine import ServeConfig
 from repro_torch.launch.runtime import make_forward_fn
 from repro_torch.models import decoder as tdec
 from repro_torch.serve import ServingSession
+from torch_cases import DENSE_ETP_CASES
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, T = 2, 16
@@ -91,25 +96,59 @@ def test_forward_fn_defaults_to_cuda(rwkv):
 
 
 def test_forward_refuses_attention_configs():
-    """The forward runs global-attention MoE decoders now; it still refuses
-    the attention blocks not ported yet (sliding window, M-RoPE, dense
-    FFN)."""
+    """The forward runs global-attention decoders, MoE and dense; it still
+    refuses the attention blocks not ported yet (sliding window,
+    M-RoPE)."""
     base = get_config("paper-gpt-32x1.3b").smoke()
-    for change in (dict(window=8), dict(mrope_sections=(8, 12, 12)),
-                   dict(moe=False)):
+    for change in (dict(window=8), dict(mrope_sections=(8, 12, 12))):
         cfg = TorchArchConfig(**dataclasses.asdict(
             dataclasses.replace(base, **change)))
         with pytest.raises(ValueError, match="attention prefill"):
             tdec.check_forward(cfg)
     tdec.check_forward(TorchArchConfig(**dataclasses.asdict(base)))
+    tdec.check_forward(TorchArchConfig(**dataclasses.asdict(
+        dataclasses.replace(base, moe=False))))
 
 
-@pytest.mark.parametrize("name", ["olmoe-1b-7b", "paper-gpt-32x1.3b"])
+CHECKS = {"serve": tdec.check_servable, "forward": tdec.check_forward,
+          "train": tdec.check_trainable}
+
+
+@pytest.mark.parametrize("check", sorted(CHECKS))
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "gemma-2b",
+                                  "paper-mixtral-16x2b", "dbrx-132b"])
+def test_checks_take_dense_and_etp_decoders(arch, check):
+    """Every path takes the dense decoders and the expert-tensor-parallel
+    MoE ones, at full size and at smoke size with the config's etp."""
+    cfg = TorchArchConfig(**dataclasses.asdict(get_config(arch)))
+    CHECKS[check](cfg)
+    CHECKS[check](dataclasses.replace(cfg.smoke(), etp=cfg.etp))
+
+
+@pytest.mark.parametrize("check", sorted(CHECKS))
+@pytest.mark.parametrize("arch", ["gemma3-4b", "dbrx-132b-swa",
+                                  "qwen2-vl-7b", "recurrentgemma-9b",
+                                  "musicgen-medium"],
+                         ids=["windowed", "windowed-moe", "mrope", "rglru",
+                              "stub"])
+def test_checks_refuse_unported_blocks(arch, check):
+    """Sliding-window attention, M-RoPE, RG-LRU blocks and frontend stubs
+    stay refused by the serve, forward and train checks."""
+    cfg = TorchArchConfig(**dataclasses.asdict(get_config(arch)))
+    with pytest.raises(ValueError, match="not ported"):
+        CHECKS[check](cfg)
+
+
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "paper-gpt-32x1.3b",
+                                  *DENSE_ETP_CASES])
 def test_moe_forward_matches_reference(name):
-    """The attention + MoE forward against the reference's ``forward``:
-    logits, the layer-summed MoE metrics and the new solver states, cold
-    and then warm-started from the first call's states."""
-    ref_cfg = get_config(name).smoke()
+    """The global-attention forward against the reference's ``forward``:
+    logits, the layer-summed MoE metrics and the new solver states (a dense
+    decoder hands back the None it was given), cold and then warm-started
+    from the first call's states; and the chunked LM loss of the hidden
+    state against the reference's."""
+    ref_cfg = (DENSE_ETP_CASES[name]() if name in DENSE_ETP_CASES
+               else get_config(name).smoke())
     params = rdec.init_params(jax.random.PRNGKey(4), ref_cfg)
     cfg = TorchArchConfig(**dataclasses.asdict(ref_cfg))
     model = tdec.load_reference_params(
@@ -129,9 +168,27 @@ def test_moe_forward_matches_reference(name):
             np.testing.assert_allclose(float(getattr(t_moe, k)),
                                        float(getattr(moe, k)), rtol=1e-5,
                                        err_msg=k)
+        np.testing.assert_array_equal(t_moe.expert_load.numpy(),
+                                      np.asarray(moe.expert_load))
+        if not cfg.moe:
+            assert t_states is None and r_states is None
+            continue
         np.testing.assert_array_equal(
             np.stack([s.x.numpy() for s in t_states]),
             np.asarray(r_states["scan"][0].x))
+
+    labels = np.concatenate([tokens[:, 1:], np.full((B, 1), -1)], axis=1)
+    hidden = jax.jit(lambda p, toks: rdec.forward(
+        p, ref_cfg, {"tokens": toks}, rdec.Runtime(impl="ref"),
+        return_hidden=True)[0])(params, jnp.asarray(tokens))
+    w_out = params.get("head", params["embed"].T)
+    expect = float(rdec.lm_loss_chunked(hidden, w_out, jnp.asarray(labels),
+                                        chunk_t=5))
+    t_hidden = tdec.forward(model, {"tokens": torch.tensor(tokens).long()},
+                            return_hidden=True)[0]
+    got = tdec.lm_loss_chunked(t_hidden, tdec._w_out(model),
+                               torch.tensor(labels).long(), chunk_t=5)
+    np.testing.assert_allclose(got.item(), expect, rtol=1e-5)
 
 
 def test_serving_refuses_rwkv_configs(rwkv):

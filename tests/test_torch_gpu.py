@@ -1,8 +1,9 @@
 """Tests of the port that need the card: K1, K1b, K2, K3, K3s and K4 (CUDA
 kernels, with no CPU or interpret mode) against their plain versions on the
 same inputs, K1, K1b, K3 and K3s against their own arithmetic in plain
-PyTorch, K1b, K3 and K3s against float64, the training step and the RWKV-6
-decode on the card against the CPU's plain path.
+PyTorch, K1b, K3 and K3s against float64, the training step (MoE, expert
+tensor parallelism and dense) and the decode step (RWKV-6 and expert tensor
+parallelism) on the card against the CPU's plain path.
 They skip without a CUDA device.  This file imports no JAX, so it also runs where JAX
 is not installed:
 
@@ -615,6 +616,107 @@ def test_cuda_train_step_matches_cpu(name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (K1, K1b and K4 are CUDA kernels)")
     check_train.card_vs_cpu(name, torch.device("cuda", 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,etp", [c for c in check_train.CASES
+                                      if c[0] not in check_train.CONFIGS])
+def test_cuda_etp_and_dense_train_step_matches_cpu(name, etp):
+    """The train step of paper-mixtral-16x2b smoke with expert tensor
+    parallelism 2 (K1, K1b and K4 on 8 virtual experts) and of the dense
+    qwen1.5-0.5b smoke (no hand-written kernel) on the card against the
+    CPU, at the tolerances above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1, K1b and K4 are CUDA kernels)")
+    r = check_train.card_vs_cpu(name, torch.device("cuda", 0), etp=etp)
+    assert (r["launches"]["K1b"] > 0) == (etp > 1)
+
+
+def _etp_flat_case(tokens: int, seed: int):
+    """The flat buffer the serving path builds for one MoE layer of
+    paper-mixtral-16x2b smoke with expert tensor parallelism 2 (8 virtual
+    experts of H 256, F 64: a token's 4 rows go to both shards of each of
+    its 2 experts), weights and an output gradient, on the card."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.time_k1 import (decode_flat_buffer, expert_shape,
+                                            random_weights)
+    cfg = dataclasses.replace(get_config("paper-mixtral-16x2b").smoke(),
+                              etp=2)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x, start, end = decode_flat_buffer(g, cfg, tokens, "cuda")
+    w = random_weights(g, *expert_shape(cfg), "cuda")
+    dout = torch.randn(x.shape, generator=g, device="cuda")
+    return x, start, end, w, dout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activation", ["swiglu", "geglu", "relu_sq"])
+def test_cuda_k1_k1b_etp_geometry(activation):
+    """K1 and K1b against their plain versions at an expert-tensor-parallel
+    geometry (F = moe_d_ff / etp, each token's rows in adjacent virtual
+    experts, so the two shards of an expert hold equal counts): K1 in f32
+    at 2e-5, K1b at the training geometry's tolerance
+    (``time_k1b.max_err``: rtol 1e-4 and an atol of 1e-5 of each output's
+    largest magnitude, for its 3xTF32 products over unit-scale rows);
+    zeros outside every group exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 and K1b are CUDA kernels)")
+    x, start, end, w, dout = _etp_flat_case(64, 23)
+    counts = end - start
+    assert int(counts.sum()) == 64 * 4 and w[0].shape == (8, 256, 64)
+    assert torch.equal(counts[0::2], counts[1::2])
+    got = ops.grouped_ffn_flat(x, start, end, *w, activation=activation, bm=8)
+    expect = ref.grouped_ffn_flat_ref(x, start, end, *w,
+                                      activation=activation)
+    torch.testing.assert_close(got, expect, **F32_TOL)
+    member = _member(x, start, end)
+    assert bool((got[~member] == 0).all())
+    grads = grouped_ffn_flat_bwd_cuda(x, start.int(), end.int(), *w, dout,
+                                      activation)
+    expect = ref.grouped_ffn_flat_bwd_ref(x, start, end, *w, dout,
+                                          activation)
+    for name, a, b in zip(time_k1b.OUTPUTS, grads, expect):
+        time_k1b.max_err(f"K1b {activation} {name}", a, b)
+    assert bool((grads[0][~member] == 0).all())
+
+
+@pytest.mark.gpu
+def test_cuda_etp_decode_step_matches_cpu():
+    """One decode step of paper-mixtral-16x2b smoke with expert tensor
+    parallelism 2 on the card against the CPU with identical weights:
+    logits within 1e-4, the solver iterates within 1e-5, one K1 and one K4
+    launch a layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 and K4 are CUDA kernels)")
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.sched import schedule_cuda
+    from repro_torch.models import decoder as dec
+    cfg = dataclasses.replace(get_config("paper-mixtral-16x2b").smoke(),
+                              etp=2)
+    cpu_model = dec.init_params(cfg, seed=3, device="cpu")
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    toks = torch.tensor([[5], [77], [301]])
+    active = torch.tensor([True, False, True])
+    out = {}
+    for dev, model in (("cpu", cpu_model), ("cuda", card_model)):
+        state = dec.init_decode_state(cfg, 3, 8, device=dev)
+        state["solver"] = dec.init_solver_states(cfg, 1, device=dev)
+        k1, k4 = grouped_ffn_flat_cuda.launches, schedule_cuda.launches
+        logits, state = dec.decode_step(model, state, {
+            "tokens": toks.to(dev), "active": active.to(dev)})
+        out[dev] = (logits.cpu(), [s.x.cpu() for s in state["solver"]],
+                    grouped_ffn_flat_cuda.launches - k1,
+                    schedule_cuda.launches - k4)
+    (lc, sc, _, _), (lg, sg, k1, k4) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+    for a, b in zip(sg, sc):
+        assert a.shape == (8, 1)
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    assert k1 == k4 == cfg.num_layers
 
 
 @pytest.mark.gpu

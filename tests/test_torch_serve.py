@@ -1,7 +1,10 @@
 """The port's serving loop (``repro_torch.serve``) against the reference
 ``ServingSession``: the golden arrivals, served with the same weights, give
-identical per-request tokens (paper-gpt-32x1.3b and rwkv6-7b smoke), and the
-port's canonical report equals the golden co-located fixture."""
+identical per-request tokens (paper-gpt-32x1.3b and rwkv6-7b smoke, the
+dense qwen1.5-0.5b, gemma-2b and paper-gpt-32x1.3b without MoE, and
+paper-mixtral-16x2b with expert tensor parallelism 2), the port's canonical
+report equals the golden co-located fixture, and the serving CLI runs on
+the CPU."""
 import dataclasses
 import json
 import pathlib
@@ -15,10 +18,12 @@ from repro.engine import ServeConfig
 from repro.serve import ServingSession, poisson_trace, replay_trace
 from repro_torch.configs.base import ArchConfig as TorchArchConfig
 from repro_torch.engine import ServeConfig as TorchServeConfig
+from repro_torch.launch import serve as serve_cli
 from repro_torch.models.decoder import check_servable, load_reference_params
 from repro_torch.serve import ServingSession as TorchServingSession
 from repro_torch.serve import poisson_trace as torch_poisson_trace
 from repro_torch.serve import replay_trace as torch_replay_trace
+from torch_cases import DENSE_ETP_CASES, port_config
 
 GOLDEN = pathlib.Path(__file__).parent / "golden" / \
     "serve_report_colocated.json"
@@ -112,3 +117,48 @@ def test_check_servable_takes_rwkv_and_refuses_other_blocks(arch, servable):
     else:
         with pytest.raises(ValueError, match="not ported"):
             check_servable(cfg)
+
+
+@pytest.mark.parametrize("case", sorted(DENSE_ETP_CASES))
+def test_serving_tokens_match_reference(case):
+    """The golden arrivals served by the reference's session and by the
+    port's with the same weights: the same tokens per request, the same
+    step count; a dense decoder reports no balance, an MoE one the
+    reference's."""
+    ref_cfg = DENSE_ETP_CASES[case]()
+    cfg = port_config(ref_cfg)
+    ref_sess = ServingSession(ref_cfg, ServeConfig(max_batch=3, max_seq=24),
+                              seed=0)
+    ref_rep = ref_sess.run(replay_trace(_GOLDEN_ARRIVALS,
+                                        vocab=ref_cfg.vocab, seed=11))
+    model = load_reference_params(
+        jax.tree_util.tree_map(np.asarray, ref_sess.params), cfg,
+        device="cpu")
+    sess = TorchServingSession(cfg, TorchServeConfig(max_batch=3, max_seq=24),
+                               device="cpu", model=model)
+    rep = sess.run(torch_replay_trace(_GOLDEN_ARRIVALS, vocab=cfg.vocab,
+                                      seed=11))
+    assert [r.tokens for r in rep.records] == \
+        [r.tokens for r in ref_rep.records]
+    assert rep.steps == ref_rep.steps and rep.overflow == 0.0
+    if cfg.moe:
+        assert rep.mean_balance == pytest.approx(ref_rep.mean_balance,
+                                                 rel=1e-6)
+    else:
+        assert rep.mean_balance is None and ref_rep.mean_balance is None
+
+
+@pytest.mark.parametrize("arch,flags", [
+    ("qwen1.5-0.5b", []), ("gemma-2b", []),
+    ("paper-mixtral-16x2b", ["--etp", "2"])], ids=["qwen", "gemma", "etp"])
+def test_serve_cli_runs_on_cpu(arch, flags, capsys):
+    """The serving launcher's CPU drive: every request served, the report
+    as JSON; no balance without MoE layers."""
+    assert serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
+                           "--requests", "3", "--prompt-len", "4", "--gen",
+                           "3", "--json", *flags]) == 0
+    out = capsys.readouterr().out
+    assert f"arch={arch}-smoke device=cpu" in out
+    report = json.loads(out[out.index("\n{") + 1:])
+    assert report["requests"] == 3 and report["rejected"] == 0
+    assert (report["mean_balance"] is None) == (arch != "paper-mixtral-16x2b")

@@ -1,7 +1,9 @@
 """The port's training step (``repro_torch.train.loop.make_train_step``)
 against the reference's ``jax.jit(make_train_step(cfg, n_micro=2))`` on the
 smoke configs of olmoe-1b-7b and paper-gpt-32x1.3b (ln norm, gelu_mlp ->
-swiglu experts).  Both start from identical weights (the reference tree
+swiglu experts), paper-mixtral-16x2b with expert tensor parallelism 2, and
+the dense qwen1.5-0.5b, gemma-2b (also with its full head shape) and
+paper-gpt-32x1.3b without MoE.  Both start from identical weights (the reference tree
 carried over by ``load_reference_params``) and take one identical numpy
 batch.  Tolerances are those of ``tests/test_distributed.py``'s step check:
 the loss within 2e-4, no overflow, the Adam moments within rtol 2e-2 / atol
@@ -26,8 +28,9 @@ from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.launch import train as train_cli
 from repro_torch.models import decoder as tdec
 from repro_torch.train.loop import init_train_state, make_train_step
+from torch_cases import DENSE_ETP_CASES
 
-CONFIGS = ["olmoe-1b-7b", "paper-gpt-32x1.3b"]
+CONFIGS = ["olmoe-1b-7b", "paper-gpt-32x1.3b", *DENSE_ETP_CASES]
 B, T, N_MICRO = 4, 16, 2
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 MOMENT_TOL = dict(rtol=2e-2, atol=2e-4)
@@ -61,10 +64,15 @@ def _ref_grads(cfg, params, batch, solver):
     return jax.tree_util.tree_map(lambda g: np.asarray(g / N_MICRO), gsum)
 
 
+def _ref_config(name: str):
+    return (DENSE_ETP_CASES[name]() if name in DENSE_ETP_CASES
+            else get_config(name).smoke())
+
+
 @pytest.fixture(scope="module", params=CONFIGS)
 def stepped(request):
     """One train step of each side from identical weights on one batch."""
-    ref_cfg = get_config(request.param).smoke()
+    ref_cfg = _ref_config(request.param)
     ts = ref_init_train_state(jax.random.PRNGKey(3), ref_cfg)
     batch = SyntheticLM(vocab=ref_cfg.vocab, seq_len=T, batch=B,
                         seed=5).batch_at(0)
@@ -79,8 +87,9 @@ def stepped(request):
     step = make_train_step(cfg, n_micro=N_MICRO, device="cpu")
     state2, m = step(state, batch)
     grads = {n: p.grad for n, p in model.named_parameters()}
-    return dict(cfg=cfg, ts_ref=ts_ref, m_ref=m_ref, ref_grads=ref_grads,
-                state=state2, m=m, grads=grads, model=model)
+    return dict(cfg=cfg, ref_cfg=ref_cfg, ts_ref=ts_ref, m_ref=m_ref,
+                ref_grads=ref_grads, state=state2, m=m, grads=grads,
+                model=model)
 
 
 def test_train_step_loss_and_metrics_match_reference(stepped):
@@ -113,7 +122,12 @@ def test_train_step_adam_moments_match_reference(stepped, moment):
 
 
 def test_train_step_threads_solver_state_as_reference(stepped):
-    """The warm start after both micro-batches, layer by layer."""
+    """The warm start after both micro-batches, layer by layer ([E·etp, 1]
+    each); a dense decoder has none on either side."""
+    if not stepped["cfg"].moe:
+        assert stepped["state"].solver is None
+        assert stepped["ts_ref"].solver is None
+        return
     got = np.stack([s.x.numpy() for s in stepped["state"].solver])
     expect = np.asarray(stepped["ts_ref"].solver["scan"][0].x)
     assert got.shape == expect.shape
@@ -126,8 +140,8 @@ def test_reference_tree_inverts_load(stepped):
     was loaded from, leaf for leaf."""
     cfg = stepped["cfg"]
     params = jax.tree_util.tree_map(
-        np.asarray, rdec.init_params(jax.random.PRNGKey(9), get_config(
-            cfg.name.removesuffix("-smoke")).smoke()))
+        np.asarray, rdec.init_params(jax.random.PRNGKey(9),
+                                     stepped["ref_cfg"]))
     model = tdec.load_reference_params(params, cfg, device="cpu")
     leaves = list(_walk(tdec.reference_tree(model), params))
     assert len(leaves) == len(jax.tree_util.tree_leaves(params))
@@ -170,6 +184,20 @@ def test_train_cli_runs_on_cpu(tmp_path, capsys):
     assert np.isfinite(rows["loss"]).all() and np.isfinite(
         rows["grad_norm"]).all()
     assert (rows["overflow"] == 0).all()
+
+
+@pytest.mark.parametrize("arch,flags", [
+    ("qwen1.5-0.5b", []), ("gemma-2b", []),
+    ("paper-mixtral-16x2b", ["--etp", "2"])], ids=["qwen", "gemma", "etp"])
+def test_train_cli_runs_dense_and_etp_on_cpu(arch, flags, capsys):
+    """The launcher's CPU drive of a dense decoder and of expert tensor
+    parallelism: finite losses; balance 0 without MoE layers."""
+    assert train_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
+                           "--steps", "2", "--batch", "2", "--seq", "8",
+                           "--n-micro", "1", *flags]) == 0
+    out = capsys.readouterr().out
+    assert f"arch={arch}-smoke device=cpu loss" in out
+    assert "nan" not in out.split("device=cpu loss")[1]
 
 
 @pytest.mark.parametrize("flags", [["--data-axis", "2"], ["--ckpt-dir", "x"],
