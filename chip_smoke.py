@@ -7,9 +7,10 @@ Phases, in order; any failure raises and exits nonzero:
   1. environment: torch / CUDA versions and the card's name and power limit;
      TF32 off for matrix products and convolutions (full f32 products);
   2. build K1/K2 (``src/repro_torch/csrc/grouped_ffn_flat.cu``), K1b
-     (``src/repro_torch/csrc/grouped_ffn_flat_bwd.cu``), K3
-     (``src/repro_torch/csrc/wkv6.cu``) and K4
-     (``src/repro_torch/csrc/microep_sched.cu``) with nvcc, all four
+     (``src/repro_torch/csrc/grouped_ffn_flat_bwd.cu``), K3 and K3s
+     (``src/repro_torch/csrc/wkv6.cu``), K3b
+     (``src/repro_torch/csrc/wkv6_bwd.cu``) and K4
+     (``src/repro_torch/csrc/microep_sched.cu``) with nvcc, all five
      started together;
   3. K1 against its plain PyTorch version on the card, f32 and bf16, all
      three activations: (a) bm 128, S 3, H 128, F 512, counts [100, 0, 250];
@@ -106,9 +107,10 @@ Phases, in order; any failure raises and exits nonzero:
      time, tokens/s and peak memory, then one more step split into K1, K1b,
      the scheduler, AdamW and the rest;
  13. one train step on the card against the CPU's plain path on the smoke
-     configs of olmoe-1b-7b and paper-gpt-32x1.3b (``launch/
+     configs of olmoe-1b-7b, paper-gpt-32x1.3b and rwkv6-7b (``launch/
      check_train.py``): loss within 2e-4, gradients within rtol 1e-4 / atol
-     1e-5, Adam moments within rtol 2e-2 / atol 2e-4;
+     1e-5, Adam moments within rtol 2e-2 / atol 2e-4; K3 and K3b once an
+     RWKV-6 layer and micro-batch on the card, no plain recurrence;
  14. serve rwkv6-7b at full width and depth (f32 weights drawn on the card
      from a seeded generator, built for this phase and freed after it):
      (a) teacher forcing, 2 sequences x 64 tokens one token a step against
@@ -171,8 +173,28 @@ Phases, in order; any failure raises and exits nonzero:
      parameters; f32 master, gradients and two Adam moments take 53.3 GB):
      four steps of 8 × 512 tokens in 2 micro-batches, as phase 12 (K4, K1
      and K1b each 8 times a step); then one train step of its smoke config
-     with etp 2 card vs CPU, as phase 13.
-Phases 17-19 print each part's wall time, peak memory and kernel launches.
+     with etp 2 card vs CPU, as phase 13;
+ 20. K3b (K3's backward, ``src/repro_torch/csrc/wkv6_bwd.cu``) against its
+     plain version ``ref.wkv6_bwd_ref`` (``launch/time_k3.py
+     --backward``): at rwkv6-7b's training geometry (BH 4 x 64 heads, T
+     512, D 64, its decays) and at T 1, 15, 16, 17, 100, 2048 with D 32,
+     64, 128, within rtol 1e-4 and an atol of 1e-5 of each output's largest
+     magnitude; two calls equal bit for bit; each output at most twice as
+     far from the float64 evaluation as the f32 plain version, at T 512 and
+     2048; K3 at the training geometry against its plain version; K3b and
+     K3 timed there beside their plain versions and bounds;
+ 21. train rwkv6-7b at full width, depth cut to 8 of its 32 layers (7.29 B
+     parameters would need 116.6 GB of f32 master, gradients and two Adam
+     moments; 8 layers hold 2.024 B, 32.4 GB): (a) four steps of 8 × 512
+     tokens in 2 micro-batches, as phase 12, with K3 and K3b each 16 times
+     a step and no plain recurrence, the split timers, and one more step
+     with every block rematerialised (K3 32 times, K3b 16; its peak
+     memory); (b) one step at full width and 2 layers without and with
+     remat from identical weights: every gradient equal bit for bit, K3
+     launched twice as often; (c) rwkv6-7b smoke's card model saved in the
+     checkpoint files and restored on the CPU: every parameter equal bit
+     for bit, the loss of a fixed batch within 2e-4.
+Phases 17-21 print each part's wall time, peak memory and kernel launches.
 The last two lines are the kernels' JSON record and the result object.
 """
 from __future__ import annotations
@@ -234,11 +256,12 @@ def launch_totals() -> dict:
                                                     grouped_ffn_flat_bwd_cuda,
                                                     grouped_ffn_flat_cuda)
     from repro_torch.kernels.sched import schedule_cuda
-    from repro_torch.kernels.wkv6_chunk import wkv6_cuda, wkv6_state_cuda
+    from repro_torch.kernels.wkv6_chunk import (wkv6_bwd_cuda, wkv6_cuda,
+                                                wkv6_state_cuda)
     return {name: _TALLY.get(fn, 0) + fn.launches for name, fn in (
         ("K1", grouped_ffn_flat_cuda), ("K1b", grouped_ffn_flat_bwd_cuda),
         ("K2", grouped_ffn_cuda), ("K3", wkv6_cuda), ("K3s", wkv6_state_cuda),
-        ("K4", schedule_cuda))}
+        ("K3b", wkv6_bwd_cuda), ("K4", schedule_cuda))}
 
 
 @contextlib.contextmanager
@@ -684,7 +707,7 @@ def phase_k3(fwd_geom, device) -> dict:
     """``fwd_geom``: K3's (BH, T, D) in the forward of phase 8."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.wkv6_chunk import wkv6_cuda
-    from repro_torch.launch.time_k3 import unaligned
+    from repro_torch.launch.time_k3 import k3_bound, unaligned
     g = torch.Generator(device=device)
     g.manual_seed(99)
     errs_f, inputs_f = [], None
@@ -730,13 +753,8 @@ def phase_k3(fwd_geom, device) -> dict:
     q, k, v, lw, u = inputs_f
     plain_ms = cuda_ms(lambda: ref.wkv6_chunk_ref(q, k, v, torch.exp(lw), u),
                        2)
-    bh, t, d = fwd_geom
-    # q, k, v, lw read once, o written once, u read once.  Operations per
-    # step and row: 2·D² for q·S, 3·D² for w·S + k·vᵀ, and 6·D for w =
-    # exp(lw), the bonus Σ q·u·k and its product with v
-    nbytes = (5 * bh * t * d + bh * d) * q.element_size()
-    flops = (5 * d * d + 6 * d) * t * bh
-    bound_ms, bound_by = k_bound(nbytes, flops)
+    bound_ms, bound_by, nbytes, flops = k3_bound(*fwd_geom,
+                                                 q.element_size())
     print(f"  K3 {fwd_geom} f32, rwkv6-7b's decays: {k3_ms:.4f} ms, plain version "
           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
           f"{nbytes / 1e6:.0f} MB moved, {flops / 1e9:.2f} GFLOP)")
@@ -986,15 +1004,18 @@ def training_geometry(device, arch: str):
 
 def train_split(ts, step, batch) -> dict:
     """Wall time of one train step, and within it the time of the K1
-    calls, the K1b calls, the scheduler calls and AdamW, each bracketed by
-    device synchronisations."""
+    calls, the K1b calls, the scheduler calls, the K3 calls, the K3b calls
+    and AdamW, each bracketed by device synchronisations."""
     from repro_torch.core.scheduler import Scheduler
-    from repro_torch.kernels import grouped_matmul, ops
+    from repro_torch.kernels import grouped_matmul, ops, wkv6_chunk
     from repro_torch.train import loop
-    spent = dict.fromkeys(("k1", "k1b", "scheduler", "adamw"), 0.0)
+    spent = dict.fromkeys(("k1", "k1b", "scheduler", "k3", "k3b", "adamw"),
+                          0.0)
     patches = [(ops, "grouped_ffn_flat", "k1"),
                (grouped_matmul.GroupedFFNFlat, "backward", "k1b"),
                (Scheduler, "__call__", "scheduler"),
+               (ops, "wkv6", "k3"),
+               (wkv6_chunk.WKV6, "backward", "k3b"),
                (loop, "adamw_update", "adamw")]
     originals = [obj.__dict__[name] for obj, name, _ in patches]
     for (obj, name, key), fn in zip(patches, originals):
@@ -1017,31 +1038,39 @@ def train_split(ts, step, batch) -> dict:
     return out
 
 
-def phase_train(cfg, device, steps: int, k1_train: dict = None) -> dict:
+def phase_train(cfg, device, steps: int, k1_train: dict = None,
+                remat_step: bool = False) -> dict:
     """Train ``cfg`` (depth cut by the caller where it must be) for
     ``steps`` steps of 8 × 512 synthetic tokens in 2 micro-batches: finite
     losses and gradient norms, no overflow, K1, K1b and K4 each launched
-    once a MoE layer a micro-batch (none for a dense decoder) and no plain
-    version; the step time, tokens/s and peak memory, then (MoE) one more
-    step split by synchronised timers.  -> the run's kernel launches."""
+    once a MoE layer a micro-batch, K3 and K3b once an RWKV-6 layer a
+    micro-batch (none for a dense decoder) and no plain version; the step
+    time, tokens/s and peak memory, then (MoE or RWKV-6) one more step split
+    by synchronised timers, and with ``remat_step`` one more step with
+    every block rematerialised: its time, peak memory and launches.  -> the
+    run's kernel launches (the steps before the split)."""
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.kernels.grouped_matmul import (grouped_ffn_flat_bwd_cuda,
                                                     grouped_ffn_flat_cuda)
     from repro_torch.kernels.sched import schedule_cuda
+    from repro_torch.kernels.wkv6_chunk import wkv6_bwd_cuda, wkv6_cuda
     from repro_torch.launch.check_train import (count_plain_calls,
+                                                expected_launches,
                                                 kernel_launches)
     from repro_torch.models import decoder as dec
     from repro_torch.train.loop import init_train_state, make_train_step
     batch, seq, n_micro = 8, 512, 2
     n_moe = dec.n_moe_layers(cfg)
+    rwkv = tuple(cfg.pattern) == ("rwkv",)
     t0 = time.perf_counter()
     ts = init_train_state(cfg, seed=0, device=device)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in ts.model.parameters())
     ffn = (f"{cfg.num_experts} experts top-{cfg.top_k}"
            f"{f' x etp {cfg.etp}' if cfg.etp > 1 else ''}, moe_d_ff "
-           f"{cfg.moe_d_ff}" if cfg.moe else f"dense {cfg.ffn_kind} d_ff "
-           f"{cfg.d_ff}")
+           f"{cfg.moe_d_ff}" if cfg.moe else
+           f"RWKV-6 time and channel mix, d_ff {cfg.d_ff}" if rwkv else
+           f"dense {cfg.ffn_kind} d_ff {cfg.d_ff}")
     print(f"  {cfg.name}, {cfg.num_layers} layers: d_model "
           f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim} "
           f"({cfg.num_kv_heads} KV), {ffn}, vocab {cfg.vocab}, "
@@ -1056,6 +1085,8 @@ def phase_train(cfg, device, steps: int, k1_train: dict = None) -> dict:
     zero_counts(grouped_ffn_flat_cuda)          # just before the main path
     zero_counts(grouped_ffn_flat_bwd_cuda)
     zero_counts(schedule_cuda)
+    zero_counts(wkv6_cuda)
+    zero_counts(wkv6_bwd_cuda)
     with count_plain_calls() as plain:
         for i in range(steps):
             torch.cuda.synchronize()
@@ -1070,20 +1101,22 @@ def phase_train(cfg, device, steps: int, k1_train: dict = None) -> dict:
                   f"overflow {vals['overflow']:.0f}, {times[-1]:.1f} ms")
     launches = kernel_launches()                # just after it
     peak = torch.cuda.max_memory_allocated()
-    expect = steps * n_moe * n_micro
+    expect = expected_launches(cfg, n_micro, steps)
     require(all(torch.isfinite(torch.tensor([r["loss"], r["grad_norm"]]))
                 .all() for r in rows), "a loss or gradient norm is not finite")
     require(all(r["overflow"] == 0 for r in rows), "capacity overflow")
-    require(launches == dict.fromkeys(launches, expect),
-            f"launches {launches}, expected {expect} each")
+    require(launches == expect,
+            f"launches {launches}, expected {expect}")
     require(not any(plain.values()),
             f"a plain version ran on the card path: {plain}")
     steady = times[1:]
     step_ms = sum(steady) / len(steady)
     tokens = batch * seq
-    print(f"  launches over {steps} steps: {launches} ({expect // steps} "
-          f"each a step = {n_moe} MoE layers x {n_micro} micro-batches); "
-          f"plain calls {plain}")
+    layers = (f"{cfg.num_layers} RWKV-6 layers" if rwkv
+              else f"{n_moe} MoE layers")
+    print(f"  launches over {steps} steps: {launches} (a step: "
+          f"{ {k: v // steps for k, v in launches.items()} }, {layers} x "
+          f"{n_micro} micro-batches); plain calls {plain}")
     print(f"  step time {step_ms:.1f} ms (mean of steps 1-{steps - 1}; step "
           f"0 {times[0]:.1f} ms), {tokens / step_ms * 1e3:.0f} tokens/s, "
           f"loss {rows[-1]['loss']:.4f}, grad norm {rows[-1]['grad_norm']:.4f},"
@@ -1100,9 +1133,35 @@ def phase_train(cfg, device, steps: int, k1_train: dict = None) -> dict:
               f"= K1 {sp['k1']:.1f} ms + K1b {sp['k1b']:.1f} ms + scheduler "
               f"{sp['scheduler']:.1f} ms ({n_moe * n_micro} calls each) + "
               f"AdamW {sp['adamw']:.1f} ms + rest {sp['rest']:.1f} ms")
+    elif rwkv:
+        sp = train_split(ts, step, data.batch_at(steps))
+        print(f"  one more step with the split timers: {sp['step']:.1f} ms "
+              f"= K3 {sp['k3']:.1f} ms + K3b {sp['k3b']:.1f} ms "
+              f"({cfg.num_layers * n_micro} calls each) + AdamW "
+              f"{sp['adamw']:.1f} ms + rest {sp['rest']:.1f} ms (the "
+              f"matrix products, norms and the loss)")
     else:
         print("  a dense decoder: no hand-written kernel on this path (f32 "
               "cuBLAS products, attention and AdamW in plain PyTorch)")
+    if remat_step:
+        step = make_train_step(cfg, n_micro=n_micro, device=device,
+                               remat=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = kernel_launches()
+        t0 = time.perf_counter()
+        ts, m = step(ts, data.batch_at(steps + 1))
+        loss = float(m["loss"])
+        remat_ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: v - before[k] for k, v in kernel_launches().items()}
+        want = expected_launches(cfg, n_micro, remat=True)
+        require(launched == want and bool(torch.isfinite(m["grad_norm"])),
+                f"the remat step launched {launched}, expected {want}; "
+                f"grad norm {float(m['grad_norm'])}")
+        print(f"  one more step with every block rematerialised: "
+              f"{remat_ms:.1f} ms, loss {loss:.4f}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (without "
+              f"remat {peak / 2**30:.2f} GiB); launches {launched}")
     del ts, step
     return launches
 
@@ -1450,6 +1509,121 @@ def phase_serve_dense(cfg, serve_cfg, device) -> None:
     del sess, model
 
 
+# ---------------------------------------------------- phase 20: K3b
+
+
+def phase_k3b(device):
+    """K3b against its plain version (``time_k3.check_bwd``).  -> (K3b's
+    record, K3's record at the training geometry of phase 21); their
+    launches are phase 21's."""
+    from repro_torch.launch import time_k3
+    try:
+        r = time_k3.check_bwd(device)
+    except AssertionError as exc:
+        raise SmokeFailure(str(exc)) from exc
+    for line in time_k3.describe_bwd(r).splitlines():
+        print("  " + line)
+    records = []
+    for key, name, source, replaces, err in (
+            ("k3b", "wkv6_bwd", "src/repro_torch/csrc/wkv6_bwd.cu",
+             "src/repro/kernels/ref.py:87", r["err"]),
+            ("k3", "wkv6 (rwkv6-7b training)", "src/repro_torch/csrc/wkv6.cu",
+             "src/repro/kernels/wkv6_chunk.py:93", r["k3_err"])):
+        m = r[key]
+        bound_ms, bound_by = m["bound"][:2]
+        records.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": 0,
+                        "max_abs_err": err, "ms": m["ms"],
+                        "plain_ms": m["plain_ms"], "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None})
+    return records
+
+
+# ---------------------------------------------- phase 21: rwkv6-7b training
+
+
+def phase_remat_equal(cfg, device) -> None:
+    """One train step of ``cfg`` from identical weights without and with
+    every block rematerialised: every gradient equal bit for bit, K3
+    launched twice as often with remat, K3b as often."""
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch.check_train import (expected_launches,
+                                                kernel_launches)
+    from repro_torch.models import decoder as dec
+    from repro_torch.train.loop import init_train_state, make_train_step
+    model = dec.init_params(cfg, seed=5, device=device)
+    models = {False: copy.deepcopy(model), True: model}
+    batch = SyntheticLM(vocab=cfg.vocab, seq_len=512, batch=8,
+                        seed=6).batch_at(0)
+    out = {}
+    for remat, m_ in models.items():
+        ts = init_train_state(cfg, device=device, model=m_)
+        step = make_train_step(cfg, n_micro=2, device=device, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = kernel_launches()
+        t0 = time.perf_counter()
+        ts, m = step(ts, batch)
+        loss = float(m["loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: v - before[k] for k, v in kernel_launches().items()}
+        want = expected_launches(cfg, 2, remat=remat)
+        require(launched == want, f"remat {remat}: launches {launched}, "
+                                  f"expected {want}")
+        out[remat] = (loss, ms, torch.cuda.max_memory_allocated(), launched)
+        del ts, step
+    grads = [{n: p.grad for n, p in models[r].named_parameters()}
+             for r in (False, True)]
+    differ = [n for n in grads[0] if not torch.equal(grads[0][n],
+                                                     grads[1][n])]
+    require(not differ, f"gradients differ with remat: {differ[:5]}")
+    for remat, (loss, ms, peak, launched) in out.items():
+        print(f"  {cfg.num_layers} layers, {'with' if remat else 'without'} "
+              f"remat: loss {loss:.6f}, {ms:.1f} ms (a first step), peak "
+              f"memory {peak / 2**30:.2f} GiB (both models held), "
+              f"launches K3 {launched['K3']}, K3b {launched['K3b']}")
+    print(f"  every gradient ({len(grads[0])} tensors) equal bit for bit with "
+          f"and without remat")
+
+
+def phase_ckpt_roundtrip(cfg, device) -> None:
+    """Save the card model's reference tree in the checkpoint files,
+    restore it on the CPU through ``restore_checkpoint`` and
+    ``load_reference_params``: every parameter equal bit for bit, and the
+    loss of a fixed batch on the CPU within 2e-4 of the card's."""
+    import tempfile
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import decoder as dec
+    card = dec.init_params(cfg, seed=7, device=device)
+    batch = {k: torch.as_tensor(v).long() for k, v in SyntheticLM(
+        vocab=cfg.vocab, seq_len=16, batch=4, seed=8).batch_at(0).items()}
+    with torch.no_grad():
+        loss_card = float(dec.loss_fn(
+            card, {k: v.to(device) for k, v in batch.items()})[0])
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        path = save_checkpoint(d, 1, dec.reference_tree(card),
+                               {"arch": cfg.name})
+        size = pathlib.Path(path).stat().st_size
+        tree = restore_checkpoint(
+            path, dec.reference_tree(dec.Decoder(cfg, device="cpu")))
+    cpu = dec.load_reference_params(tree, cfg, device="cpu")
+    card_params = dict(card.named_parameters())
+    differ = [n for n, p in cpu.named_parameters()
+              if not torch.equal(p, card_params[n].cpu())]
+    require(not differ, f"restored parameters differ: {differ[:5]}")
+    with torch.no_grad():
+        loss_cpu = float(dec.loss_fn(cpu, batch)[0])
+    require(abs(loss_cpu - loss_card) < 2e-4,
+            f"loss {loss_card} on the card, {loss_cpu} after the restore")
+    print(f"  {cfg.name}: saved the card model ({size / 1e6:.2f} MB, "
+          f"{len(card_params)} tensors) and restored it on the CPU, every "
+          f"parameter equal bit for bit; loss {loss_card:.6f} on the card, "
+          f"{loss_cpu:.6f} on the CPU (|d| {abs(loss_cpu - loss_card):.2e}, "
+          f"within 2e-4)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card",
@@ -1472,10 +1646,11 @@ def main() -> int:
 
     # 2. build: one nvcc for each source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         libs = list(pool.map(lambda build: build(),
                              (grouped_matmul.build, grouped_matmul.build_bwd,
-                              wkv6_chunk.build, sched.build)))
+                              wkv6_chunk.build, wkv6_chunk.build_bwd,
+                              sched.build)))
     print(f"[2] built {', '.join(str(p.relative_to(ROOT)) for p in libs)} "
           f"in {time.perf_counter() - t0:.1f} s")
 
@@ -1595,12 +1770,34 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase_stats("19 card vs CPU"):
         phase_train_parity(device, [("paper-mixtral-16x2b", 2)])
+    torch.cuda.empty_cache()
+
+    print("[20] K3b (K3's backward) against its plain version")
+    with phase_stats("20 K3b"):
+        k3b, k3_train = phase_k3b(device)
+    torch.cuda.empty_cache()
+
+    print("[21] train rwkv6-7b, full width, 8 of its 32 layers")
+    with phase_stats("21 (a) train"):
+        # reduced: depth, 32 -> 8 layers (7.29 B parameters: f32 master,
+        # gradients and two Adam moments would take 116.6 GB; 8 layers hold
+        # 2.024 B, 32.4 GB)
+        launched = phase_train(dataclasses.replace(rwkv, num_layers=8),
+                               device, steps=4, remat_step=True)
+        k3b["launches"] = launched["K3b"]
+        k3_train["launches"] = launched["K3"]
+    torch.cuda.empty_cache()
+    with phase_stats("21 (b) remat, 2 layers"):
+        phase_remat_equal(dataclasses.replace(rwkv, num_layers=2), device)
+    torch.cuda.empty_cache()
+    with phase_stats("21 (c) checkpoint round trip"):
+        phase_ckpt_roundtrip(rwkv.smoke(), device)
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     print(card)
     print(json.dumps({"kernels": [record, k2, k3, k4, k1b, k3s,
                                   k1_olmoe_train, k1_mix, k1_mix_train,
-                                  k1b_mix]}))
+                                  k1b_mix, k3b, k3_train]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

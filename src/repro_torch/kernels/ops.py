@@ -4,9 +4,9 @@ The tensor's device picks the implementation, never a fallback: a CUDA
 tensor launches the hand-written kernel (which raises if it cannot build or
 launch), a CPU tensor runs the plain PyTorch version in ``ref``.  ``wkv6``
 with a state is K3s on a CUDA tensor (the reference's decode path has no
-Pallas kernel).  The
-gradient of ``grouped_ffn_flat`` is K1b on a CUDA tensor and autograd of
-the plain version on a CPU tensor.
+Pallas kernel).  The gradient of ``grouped_ffn_flat`` is K1b and that of
+``wkv6`` K3b on a CUDA tensor, and autograd of the plain version on a CPU
+tensor.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import torch
 from . import ref
 from .grouped_matmul import GroupedFFNFlat, grouped_ffn_cuda
 from .sched import schedule_cuda
-from .wkv6_chunk import wkv6_cuda, wkv6_state_cuda
+from .wkv6_chunk import WKV6, wkv6_cuda, wkv6_state_cuda
 
 __all__ = ["grouped_ffn", "grouped_ffn_flat", "schedule", "tile_group_ids",
            "wkv6"]
@@ -103,14 +103,27 @@ def wkv6(
     CUDA tensor).  With ``state`` (the decode path, the reference's
     ``_wkv_with_state``) it starts from ``state`` and returns (o, the final
     state [BH, D, D] float32), K3s on a CUDA tensor; ``state`` is not
-    modified."""
+    modified.
+
+    Its gradient, where one is asked for, is K3b on a CUDA tensor (through
+    :class:`WKV6`) and autograd of the plain recurrence on a CPU tensor.
+    The path with a ``state`` takes no gradient (the reference never
+    differentiates its decode path) and raises ``NotImplementedError``
+    when one is asked for."""
     del chunk
+    tensors = (q, k, v, lw, u) + (() if state is None else (state,))
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    if state is not None and grad:
+        raise NotImplementedError(
+            "wkv6 with a state (the decode path) takes no gradient; train "
+            "through the zero-state recurrence")
     if q.device.type == "cpu":
-        o, s = ref.wkv6_chunk_ref(q, k, v, torch.exp(lw.float()), u, state)
+        w = torch.exp(lw.to(torch.promote_types(lw.dtype, torch.float32)))
+        o, s = ref.wkv6_chunk_ref(q, k, v, w, u, state)
         return o if state is None else (o, s)
-    if state is None:
-        return wkv6_cuda(q, k, v, lw, u)
-    return wkv6_state_cuda(q, k, v, lw, u, state)
+    if state is not None:
+        return wkv6_state_cuda(q, k, v, lw, u, state)
+    return WKV6.apply(q, k, v, lw, u) if grad else wkv6_cuda(q, k, v, lw, u)
 
 
 def schedule(

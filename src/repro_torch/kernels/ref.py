@@ -26,7 +26,7 @@ __all__ = ["schedule_ref", "grouped_ffn_ref", "grouped_ffn_flat_ref",
            "grouped_ffn_flat_bwd_ref", "grouped_ffn_flat_bwd_3xtf32_ref",
            "grouped_ffn_flat_blocked_ref",
            "wkv6_chunk_ref", "wkv6_subchunk_ref", "wkv6_step_ref",
-           "wkv6_inputs"]
+           "wkv6_bwd_ref", "wkv6_inputs"]
 
 
 def _act(h_gate: torch.Tensor, h_up: torch.Tensor, activation: str):
@@ -475,6 +475,98 @@ def wkv6_step_ref(
         o[:, step] = acc
         s = w[:, step, :, None] * s + kv
     return o.to(q.dtype), s
+
+
+BWD_FWD_SLICES = 4   # K3b's forward scan: 4 threads a row of S, j = 4c + s
+BWD_REV_SLICES = 2   # its reverse scan: 2 threads a row (or column) of G
+
+
+def _seq_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Σ_d a_d b_d over the last axis, added in d order (one thread of
+    K3b, ``fmaf`` rounded twice here)."""
+    acc = a[..., 0] * b[..., 0]
+    for c in range(1, a.shape[-1]):
+        acc = acc + a[..., c] * b[..., c]
+    return acc
+
+
+def _sliced_sum(terms: torch.Tensor, slices: int) -> torch.Tensor:
+    """Σ over the last axis as K3b's threads take it: ``slices`` threads
+    each sum the terms c ≡ s (mod slices) in order, then the partial sums
+    are added in pairs by warp shuffles: (s0 + s1) for 2 slices, (s0 + s1)
+    + (s2 + s3) for 4."""
+    d = terms.shape[-1]
+    t = F.pad(terms, (0, (-d) % slices)).unflatten(-1, (-1, slices))
+    acc = t[..., 0, :]
+    for c in range(1, t.shape[-2]):
+        acc = acc + t[..., c, :]
+    if slices == 2:
+        return acc[..., 0] + acc[..., 1]
+    return (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
+
+
+def wkv6_bwd_ref(
+    q: torch.Tensor,     # [BH, T, D]
+    k: torch.Tensor,     # [BH, T, D]
+    v: torch.Tensor,     # [BH, T, D]
+    lw: torch.Tensor,    # [BH, T, D] log-decay (<= 0): w = exp(lw)
+    u: torch.Tensor,     # [BH, D]
+    do: torch.Tensor,    # [BH, T, D] the gradient of the output o
+):
+    """K3b's plain version: the vector-Jacobian product of K3's function
+    (the recurrence of ``wkv6_chunk_ref`` from a zero state, as a function
+    of q, k, v, lw and u) with ``do``, step by step in K3b's order of sums
+    -> (dq, dk, dv, dlw [BH, T, D], du [BH, D]), float32, or float64 where
+    q is (the float64 evaluation the kernel's float guard holds it to).
+
+    A forward scan re-forms the state S_{t-1} (S_t = diag(w_t) S_{t-1} +
+    k_t v_tᵀ) and gives dq_t = S_{t-1}·do_t + u ⊙ k_t (v_t·do_t) and the
+    part without the bonus p_t = q_t ⊙ (S_{t-1}·do_t).  A reverse scan
+    carries G_t = ∂L/∂S_t from G_{T-1} = 0: with B_t = G_t + (u ⊙ q_t)
+    do_tᵀ, dk_t = B_t·v_t and dv_t = B_tᵀ·k_t; then G_{t-1} = diag(w_t) G_t
+    + q_t do_tᵀ.  dlw needs no second state: with c_t = Σ_{i≤t} lw_i,
+    ∂L/∂c_m = p_{m+1} − r_m with r_t = k_t ⊙ (G_t·v_t), so dlw_t =
+    (dlw_{t+1} + p_{t+1}) − r_t, one running sum from the end, which stays
+    the size of dlw itself.  du = Σ_t q_t ⊙ k_t (v_t·do_t).
+
+    The order of sums is the kernel's: v_t·do_t and Σ_i u_i q_ti k_ti in
+    channel order; S·do over 4 threads a row (``BWD_FWD_SLICES``), G·v and
+    Gᵀ·k over 2 (``BWD_REV_SLICES``), each as ``_sliced_sum``; du in step
+    order.  Where the kernel fuses a multiply and an add (``fmaf``) this
+    rounds twice, so the two agree to rounding, not bit for bit."""
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf, kf, vf, lf, dof = (a.to(acc) for a in (q, k, v, lw, do))
+    uf = u.to(acc)
+    bh, t, d = q.shape
+    w = torch.exp(lf)
+    vdo = _seq_dot(vf, dof)                               # [BH, T]
+    uqk = _seq_dot(uf[:, None, :] * qf, kf)               # [BH, T]
+    dq, dk, dv, dlw = (torch.empty((bh, t, d), dtype=acc, device=q.device)
+                       for _ in range(4))
+    du = torch.zeros((bh, d), dtype=acc, device=q.device)
+    s = torch.zeros((bh, d, d), dtype=acc, device=q.device)  # S[i][j]
+    for step in range(t):
+        a = _sliced_sum(s * dof[:, step, None, :], BWD_FWD_SLICES)  # S·do
+        dq[:, step] = a + (uf * kf[:, step]) * vdo[:, step, None]
+        dlw[:, step] = qf[:, step] * a                    # p_t, for now
+        du = du + (qf[:, step] * kf[:, step]) * vdo[:, step, None]
+        s = w[:, step, :, None] * s + kf[:, step, :, None] * vf[:, step, None, :]
+    g = torch.zeros_like(s)                               # G[i][j]
+    run = torch.zeros((bh, d), dtype=acc, device=q.device)
+    p_next = torch.zeros_like(run)
+    for step in range(t - 1, -1, -1):
+        gv = _sliced_sum(g * vf[:, step, None, :], BWD_REV_SLICES)
+        gk = _sliced_sum(g.transpose(1, 2) * kf[:, step, None, :],
+                         BWD_REV_SLICES)
+        dk[:, step] = gv + (uf * qf[:, step]) * vdo[:, step, None]
+        dv[:, step] = gk + dof[:, step] * uqk[:, step, None]
+        p_t = dlw[:, step].clone()
+        run = (run + p_next) - kf[:, step] * gv
+        dlw[:, step] = run
+        p_next = p_t
+        g = (w[:, step, :, None] * g
+             + qf[:, step, :, None] * dof[:, step, None, :])
+    return dq, dk, dv, dlw, du
 
 
 def wkv6_inputs(g: torch.Generator, bh: int, t: int, d: int, device,

@@ -1,5 +1,5 @@
 """One training step on the card against the same step on the CPU's plain
-path, on the smoke configs of olmoe-1b-7b, paper-gpt-32x1.3b,
+path, on the smoke configs of olmoe-1b-7b, paper-gpt-32x1.3b, rwkv6-7b,
 paper-mixtral-16x2b with expert tensor parallelism 2 (``smoke()`` sets
 ``etp`` to 1, so the case sets it back) and the dense qwen1.5-0.5b.
 
@@ -8,9 +8,10 @@ paper-mixtral-16x2b with expert tensor parallelism 2 (``smoke()`` sets
 Both sides start from the same weights (drawn on the CPU from a seed and
 copied to the card) and take the same numpy batch (4 × 16 tokens, 2
 micro-batches).  On the card every MoE layer of every micro-batch must run
-K4 and K1 forward and K1b backward, and no plain version of K1, K1b or K4;
-the CPU runs exactly those plain versions (autograd of the plain K1).  A
-dense decoder runs none of them on either side.  Held
+K4 and K1 forward and K1b backward, every RWKV-6 layer K3 forward and K3b
+backward, and no plain version of K1, K1b, K4, K3 or K3b; the CPU runs
+exactly those plain versions (autograd of the plain K1 and of the plain
+recurrence).  A dense decoder runs none of them on either side.  Held
 to the tolerances of the reference's step checks: the loss within 2e-4, no
 overflow, every gradient within rtol 1e-4 / atol 1e-5, the Adam moments
 within rtol 2e-2 / atol 2e-4, the solver warm starts within 1e-5.  Needs a
@@ -30,18 +31,21 @@ from ..kernels import ref
 from ..kernels.grouped_matmul import (grouped_ffn_flat_bwd_cuda,
                                       grouped_ffn_flat_cuda)
 from ..kernels.sched import schedule_cuda
+from ..kernels.wkv6_chunk import wkv6_bwd_cuda, wkv6_cuda
 from ..models import decoder as dec
 from ..train.loop import init_train_state, make_train_step
 
-CONFIGS = ("olmoe-1b-7b", "paper-gpt-32x1.3b")   # chip_smoke.py phase 13
+CONFIGS = ("olmoe-1b-7b", "paper-gpt-32x1.3b", "rwkv6-7b")  # chip_smoke 13
 BATCH, SEQ, N_MICRO = 4, 16, 2
-PLAIN = ("grouped_ffn_flat_ref", "grouped_ffn_flat_bwd_ref", "schedule_ref")
+PLAIN = ("grouped_ffn_flat_ref", "grouped_ffn_flat_bwd_ref", "schedule_ref",
+         "wkv6_chunk_ref", "wkv6_bwd_ref")
 
 
 @contextlib.contextmanager
 def count_plain_calls():
-    """Count the calls of the plain K1, K1b and K4 while the block runs:
-    yields {name: calls}."""
+    """Count the calls of the plain K1, K1b, K4, K3 (the recurrence, whose
+    autograd is the CPU's gradient) and K3b while the block runs: yields
+    {name: calls}."""
     calls = dict.fromkeys(PLAIN, 0)
     originals = {name: getattr(ref, name) for name in PLAIN}
 
@@ -72,7 +76,23 @@ CASES = (("olmoe-1b-7b", 1), ("paper-gpt-32x1.3b", 1),
 def kernel_launches() -> dict:
     return {"K1": grouped_ffn_flat_cuda.launches,
             "K1b": grouped_ffn_flat_bwd_cuda.launches,
-            "K4": schedule_cuda.launches}
+            "K4": schedule_cuda.launches,
+            "K3": wkv6_cuda.launches,
+            "K3b": wkv6_bwd_cuda.launches}
+
+
+def expected_launches(cfg, n_micro: int, steps: int = 1,
+                      remat: bool = False) -> dict:
+    """Each kernel's launches in ``steps`` training steps of ``cfg`` on the
+    card: K4 and K1 once an MoE layer and micro-batch, K3 once an RWKV-6
+    layer and micro-batch, each twice with ``remat`` (the block's forward
+    runs again in the backward), and K1b and K3b once."""
+    n_moe = dec.n_moe_layers(cfg) * n_micro * steps
+    n_rwkv = (cfg.num_layers if tuple(cfg.pattern) == ("rwkv",) else 0) \
+        * n_micro * steps
+    fwd = 2 if remat else 1
+    return {"K1": fwd * n_moe, "K1b": n_moe, "K4": fwd * n_moe,
+            "K3": fwd * n_rwkv, "K3b": n_rwkv}
 
 
 def _max_err(label: str, got: torch.Tensor, expect: torch.Tensor,
@@ -106,12 +126,14 @@ def card_vs_cpu(name: str, device, seed: int = 0, etp: int = 1) -> dict:
         out[side] = (ts, m, launched, dict(plain))
     (ts_c, m_c, launched, plain), (ts_h, m_h, _, plain_h) = \
         out["card"], out["cpu"]
-    expect = dec.n_moe_layers(cfg) * N_MICRO
-    if launched != dict.fromkeys(launched, expect) or any(plain.values()):
+    expect = expected_launches(cfg, N_MICRO)
+    if launched != expect or any(plain.values()):
         raise AssertionError(f"{name}: card launches {launched} (expected "
-                             f"{expect} each), plain calls {plain}")
-    if expect and not plain_h["grouped_ffn_flat_ref"]:
+                             f"{expect}), plain calls {plain}")
+    if expect["K1"] and not plain_h["grouped_ffn_flat_ref"]:
         raise AssertionError(f"{name}: the CPU step ran no plain K1")
+    if expect["K3"] and not plain_h["wkv6_chunk_ref"]:
+        raise AssertionError(f"{name}: the CPU step ran no plain recurrence")
     loss_diff = abs(float(m_c["loss"]) - float(m_h["loss"]))
     if loss_diff >= 2e-4 or float(m_c["overflow"]) != 0.0:
         raise AssertionError(f"{name}: loss {float(m_c['loss'])} on the "
@@ -140,7 +162,7 @@ def describe(name: str, r: dict, etp: int = 1) -> str:
             f"CPU |dloss| {r['loss_diff']:.2e}, gradients {r['grad_err']:.2e}"
             f" (rtol 1e-4 / atol 1e-5), Adam moments {r['moment_err']:.2e}, "
             f"solver {r['solver_err']:.2e}; card launches {r['launches']}, "
-            f"no plain K1, K1b or K4")
+            f"no plain K1, K1b, K4, K3 or K3b")
 
 
 def main() -> int:

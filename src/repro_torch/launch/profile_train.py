@@ -5,14 +5,16 @@
       [--arch NAME] [--layers N]
 
 Builds ``--arch`` (default olmoe-1b-7b; any config the training step runs:
-global attention, dense or MoE of any ``etp``) at full width with its depth
+global attention, dense or MoE of any ``etp``, and RWKV-6, e.g.
+``--arch rwkv6-7b --layers 8``) at full width with its depth
 cut to ``--layers`` (default ``LAYERS``, as ``chip_smoke.py`` phase 12 does:
 f32 master, gradients and two Adam moments take 16 B a parameter; pass 0
 for the full depth) with f32 weights drawn on the card from ``SEED``
 (TF32 off), takes one step of ``BATCH`` x ``SEQ`` tokens of the synthetic
 stream in ``N_MICRO`` micro-batches as a warm-up, then profiles one more.
-Prints the device time of K1, K1b, K4, the matrix products (cuBLAS), the
-indexing kernels (gathers, scatters, index_put), and the rest, and the
+Prints the device time of K1, K1b, K4, K3 (the RWKV-6 recurrence), K3b
+(its backward), the matrix products (cuBLAS), the indexing kernels
+(gathers, scatters, index_put), and the rest, and the
 device's idle share: the part of the step's wall window (host clock,
 ending in a synchronisation) in which no kernel or copy ran, and the
 largest kernel's calls one by one.  Writes the per-kernel table and the
@@ -37,6 +39,8 @@ ARCH, LAYERS, BATCH, SEQ, N_MICRO, SEED = "olmoe-1b-7b", 4, 8, 512, 2, 0
 PARTS = (("K1 (grouped FFN)", ("ffn_up_kernel", "ffn_down_kernel")),
          ("K1b (its backward)", ("bwd_hidden", "bwd_dx", "bwd_weights")),
          ("K4 (scheduler)", ("microep_sched_kernel",)),
+         ("K3b (wkv backward)", ("wkv6_bwd_kernel",)),
+         ("K3 (RWKV-6 wkv)", ("wkv6_kernel", "wkv6_step_kernel")),
          ("matrix products", MATMUL_MARKS),
          ("indexing", ("index", "gather", "scatter")))
 

@@ -1,11 +1,14 @@
 """K3 of this checkout against other K3 sources at rwkv6-7b's forward
 geometry and decays: error against a float64 recurrence, and device time;
 or, with ``--state``, K3s (K3 with state in and state out, the decode
-path) against its plain version.
+path) against its plain version; or, with ``--backward``, K3b (K3's
+backward) against its plain version.
 
   PYTHONPATH=src python -m repro_torch.launch.time_k3 [--against FILE.cu ...]
       [--out DIR]
   PYTHONPATH=src python -m repro_torch.launch.time_k3 --state [--out DIR]
+  PYTHONPATH=src python -m repro_torch.launch.time_k3 --backward
+      [--against FILE.cu ...] [--out DIR]
 
 Builds ``csrc/wkv6.cu`` and every ``--against`` source (a K3 with the same
 C entry ``wkv6_forward``, such as an earlier version of the file) with one
@@ -27,7 +30,16 @@ nonzero states at ``STATE_T`` and at rwkv6-7b's decode geometry, BH 4 x 64
 heads, T 1, D 64; the carried state's continuity; bit-for-bit repeats; the
 float64 guard over ``GUARD_STEPS`` chained decode steps; unaligned
 tensors), then times K3s at the decode geometry and at T 2048 with a state,
-each beside the plain version and the byte bound.  Needs a CUDA device.
+each beside the plain version and the byte bound.
+
+``--backward`` runs :func:`check_bwd`, ``chip_smoke.py`` phase 20: K3b
+against ``ref.wkv6_bwd_ref`` at rwkv6-7b's training geometry (BH 4 rows x
+64 heads, T 512, D 64, its decays) and on ragged shapes (T in ``BWD_T``, D
+in ``BWD_D``), a bit-for-bit repeat, the float64 guard at T 512 and 2048,
+and K3 at the training geometry; then times K3b and K3 there beside their
+plain versions and bounds.  Each ``--against`` source is a K3b with the
+same C entry ``wkv6_backward``: it is checked against the plain version
+and timed in turns with this checkout's.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -41,8 +53,10 @@ import torch
 
 from ..kernels import ops, ref
 from ..kernels.build import build_library
-from ..kernels.wkv6_chunk import bind, build, wkv6_cuda, wkv6_state_cuda
+from ..kernels.wkv6_chunk import (bind, bind_bwd, build, build_bwd,
+                                  wkv6_bwd_cuda, wkv6_cuda, wkv6_state_cuda)
 from .profile_forward import BATCH, ROOT, SEQ
+from .time_k1b import max_err
 from .time_k4 import H100_BYTES_PER_S, H100_F32_FLOPS, cuda_ms
 
 HEADS, HEAD_DIM = 64, 64
@@ -54,6 +68,12 @@ DECODE_BATCH = 4     # serving slots of chip_smoke.py phase 14: BH 4 x 64
 STATE_T = (1, 7, 15, 16, 17, 100, 2048)
 STATE_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 GUARD_STEPS = 512
+
+TRAIN_BATCH, TRAIN_SEQ = 4, 512   # one micro-batch of chip_smoke.py phase 21
+BWD_T = (1, 15, 16, 17, 100, 2048)
+BWD_D = (32, 64, 128)
+BWD_GUARD_T = (512, 2048)
+BWD_OUTPUTS = ("dq", "dk", "dv", "dlw", "du")
 
 
 def _launch(lib, q, k, v, lw, u) -> torch.Tensor:
@@ -266,12 +286,180 @@ def describe_state(r: dict) -> str:
     return "\n".join(r["lines"] + timed)
 
 
+def k3b_bound(bh: int, t: int, d: int):
+    """(ms, "bytes" or "operations", bytes, operations) of K3b: q, k, v,
+    lw, dO read once and dq, dk, dv, dlw written once, f32 [BH, T, D], u
+    read and du written once [BH, D]; a step and row 12·D² + 24·D
+    operations (the forward scan's S·dO and state update, 5·D²; the reverse
+    scan's G·v, Gᵀ·k and G's update, 7·D²; the bonus terms, the decays,
+    v·dO, Σ u q k, du and dlw's running sum, 24·D)."""
+    nbytes = (9 * bh * t * d + 2 * bh * d) * 4
+    flops = (12 * d * d + 24 * d) * t * bh
+    t_b, t_o = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
+            nbytes, flops)
+
+
+def k3_bound(bh: int, t: int, d: int, itemsize: int = 4):
+    """(ms, "bytes" or "operations", bytes, operations) of K3 from a zero
+    state: q, k, v, lw read and o written once, u read once; a step and row
+    5·D² + 6·D operations (2·D² for q·S, 3·D² for w·S + k·vᵀ, 6·D for w =
+    exp(lw), the bonus Σ q·u·k and its product with v)."""
+    nbytes = (5 * bh * t * d + bh * d) * itemsize
+    flops = (5 * d * d + 6 * d) * t * bh
+    t_b, t_o = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
+            nbytes, flops)
+
+
+def bwd_inputs(g: torch.Generator, bh: int, t: int, d: int, device):
+    """q, k, v, lw, u with rwkv6-7b's decays (``ref.wkv6_inputs``) and an
+    output gradient dO of unit scale."""
+    x = ref.wkv6_inputs(g, bh, t, d, device, model_decay=True)
+    return (*x, torch.randn((bh, t, d), generator=g, device=device))
+
+
+def _launch_bwd(lib, q, k, v, lw, u, do):
+    """One launch of a K3b library's ``wkv6_backward``."""
+    outs = [torch.empty_like(q) for _ in range(4)] + [torch.empty_like(u)]
+    bh, t, d = q.shape
+    rc = lib.wkv6_backward(*(a.data_ptr() for a in (q, k, v, lw, u, do)),
+                           *(o.data_ptr() for o in outs), bh, t, d,
+                           torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K3b launch failed: CUDA error {rc}")
+    return outs
+
+
+def _bwd_errors(label: str, got, expect) -> float:
+    """The largest of ``max_err`` over K3b's five outputs (rtol 1e-4, atol
+    1e-5 of each output's largest magnitude, as K1b is held)."""
+    return max(max_err(f"{label} {name}", a, b)
+               for name, a, b in zip(BWD_OUTPUTS, got, expect))
+
+
+def check_bwd(device, libs: dict = None) -> dict:
+    """K3b against its plain version on the card (``chip_smoke.py`` phase
+    20); raises ``AssertionError`` on a failed check.  ``libs`` ({name: a
+    bound K3b library}) are checked and timed beside this checkout's K3b.
+    The launch counts of ``wkv6_cuda`` and ``wkv6_bwd_cuda`` are restored
+    before it returns.  -> {"lines", "err": K3b's largest error at the
+    training geometry, "k3_err", "guard": {T: {output: (K3b's, the f32
+    plain version's error from float64)}}, "k3b" and "k3": {"shape", "ms",
+    "plain_ms", "bound"}, "against": {name: {"err", "ms"}}}."""
+    counts = wkv6_cuda.launches, wkv6_bwd_cuda.launches
+    libs = libs or {}
+    g = torch.Generator(device=device)
+    g.manual_seed(17)
+    geom = (TRAIN_BATCH * HEADS, TRAIN_SEQ, HEAD_DIM)
+    lines, out = [], {"against": {}}
+
+    x = bwd_inputs(g, *geom, device)
+    got = wkv6_bwd_cuda(*x)
+    torch.cuda.synchronize()
+    plain = ref.wkv6_bwd_ref(*x)
+    out["err"] = _bwd_errors(f"K3b {geom}", got, plain)
+    again = wkv6_bwd_cuda(*x)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+        f"K3b {geom}: two calls differ"
+    for name, lib in libs.items():
+        out["against"][name] = {"err": _bwd_errors(
+            f"K3b {name} {geom}", _launch_bwd(lib, *x), plain)}
+    lines.append(f"K3b {geom} f32, rwkv6-7b's decays: max abs err "
+                 f"{out['err']:.3e} against the plain version (rtol 1e-4, "
+                 f"atol 1e-5 of each output's largest magnitude); two calls "
+                 f"equal bit for bit")
+    del got, again, plain
+
+    for d in BWD_D:
+        errs = []
+        for t in BWD_T:
+            xs = bwd_inputs(g, 3, t, d, device)
+            errs.append(_bwd_errors(f"K3b (3, {t}, {d})", wkv6_bwd_cuda(*xs),
+                                    ref.wkv6_bwd_ref(*xs)))
+        lines.append(f"K3b (3, T, {d}), T in {BWD_T}: max abs err "
+                     f"{max(errs):.3e}")
+
+    out["guard"] = {}
+    for t in BWD_GUARD_T:
+        xs = bwd_inputs(g, geom[0], t, HEAD_DIM, device)
+        got = wkv6_bwd_cuda(*xs)
+        plain = ref.wkv6_bwd_ref(*xs)
+        exact = ref.wkv6_bwd_ref(*(a.double() for a in xs))
+        guard = {}
+        for name, a, b, e in zip(BWD_OUTPUTS, got, plain, exact):
+            err, err_plain = ((c.double() - e).abs().max().item()
+                              for c in (a, b))
+            assert err <= 2 * err_plain, (
+                f"K3b {name} at T {t} is {err:.3e} from float64, the f32 "
+                f"plain version {err_plain:.3e}")
+            guard[name] = (err, err_plain)
+        out["guard"][t] = guard
+        del got, plain, exact
+        lines.append(
+            f"float64 guard at ({geom[0]}, {t}, {HEAD_DIM}): "
+            + ", ".join(f"{n} {e:.2e} vs {p:.2e}"
+                        for n, (e, p) in guard.items())
+            + " (K3b's error from float64 vs the f32 plain version's; at "
+              "most 2x)")
+
+    q, k, v, lw, u, do = x
+    k3 = ops.wkv6(q, k, v, lw, u)
+    k3_plain = ref.wkv6_chunk_ref(q, k, v, torch.exp(lw), u)[0]
+    out["k3_err"] = _close(f"K3 {geom}", k3, k3_plain, TOL)[0]
+    lines.append(f"K3 {geom} f32: max abs err {out['k3_err']:.3e} against "
+                 f"its plain version (rtol = atol = {TOL})")
+    out["k3b"] = {"shape": geom, "ms": cuda_ms(lambda: wkv6_bwd_cuda(*x), 20),
+                  "plain_ms": cuda_ms(lambda: ref.wkv6_bwd_ref(*x), 1),
+                  "bound": k3b_bound(*geom)}
+    out["k3"] = {"shape": geom, "ms": cuda_ms(lambda: ops.wkv6(*x[:5]), 20),
+                 "plain_ms": cuda_ms(lambda: ref.wkv6_chunk_ref(
+                     q, k, v, torch.exp(lw), u), 2),
+                 "bound": k3_bound(*geom)}
+    if libs:
+        runs = {"this checkout": lambda: wkv6_bwd_cuda(*x)}
+        runs.update({n: (lambda lib=lib: _launch_bwd(lib, *x))
+                     for n, lib in libs.items()})
+        order = list(runs) + list(reversed(runs))
+        times = {n: [] for n in runs}
+        for n in order:
+            times[n].append(_ms(runs[n]))
+        for n, ts in times.items():
+            entry = out["against"].setdefault(n, {})
+            entry["ms"] = sum(ts) / len(ts)
+            entry["runs_ms"] = ts
+    out["lines"] = lines
+    wkv6_cuda.launches, wkv6_bwd_cuda.launches = counts
+    return out
+
+
+def describe_bwd(r: dict) -> str:
+    """What :func:`check_bwd` found, one item a line."""
+    timed = []
+    for key, name in (("k3b", "K3b"), ("k3", "K3")):
+        m = r[key]
+        ms, by, nbytes, flops = m["bound"]
+        timed.append(
+            f"{name} {tuple(m['shape'])} f32, rwkv6-7b's decays: "
+            f"{m['ms']:.4f} ms, plain version {m['plain_ms']:.4f} ms, bound "
+            f"{ms:.4f} ms ({by}: {nbytes / 1e6:.0f} MB, "
+            f"{flops / 1e9:.2f} GFLOP; {ms / m['ms']:.1%} reached)")
+    for name, a in r["against"].items():
+        timed.append(f"K3b {name}: "
+                     + (f"max abs err {a['err']:.3e}, " if "err" in a else "")
+                     + f"{a['ms']:.4f} ms (runs "
+                     + ", ".join(f"{t:.4f}" for t in a["runs_ms"]) + ")")
+    return "\n".join(r["lines"] + timed)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--against", action="append", default=[],
                     help="another K3 source (.cu); may be repeated")
     ap.add_argument("--state", action="store_true",
                     help="check and time K3s (state in, state out) instead")
+    ap.add_argument("--backward", action="store_true",
+                    help="check and time K3b (K3's backward) instead")
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -283,6 +471,24 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
+    if args.backward:
+        jobs = {"this checkout": build_bwd}
+        for src in args.against:
+            path = pathlib.Path(src).resolve()
+            jobs[str(src)] = lambda p=path: build_library(p)
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            built = dict(zip(jobs, pool.map(lambda job: job(),
+                                            jobs.values())))
+        r = check_bwd(torch.device("cuda", 0),
+                      {n: bind_bwd(p) for n, p in built.items()
+                       if n != "this checkout"})
+        print(card)
+        print(describe_bwd(r))
+        summary = {"card": card, **{k: r[k] for k in (
+            "err", "k3_err", "guard", "k3b", "k3", "against")}}
+        (out / "time_k3b.json").write_text(json.dumps(summary, indent=1))
+        print(json.dumps(summary))
+        return 0
     if args.state:
         r = check_state(torch.device("cuda", 0))
         print(card)

@@ -2,7 +2,7 @@
 ``repro.launch.train``): synthetic learnable data, real MicroEP scheduling
 per micro-batch in every MoE layer, AdamW with a warmup-cosine schedule.
 Dense and MoE global-attention decoders, MoE with any expert tensor
-parallelism (``--etp``).
+parallelism (``--etp``), and RWKV-6 decoders (K3 forward, K3b backward).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
       --smoke --device cpu --steps 4 --batch 4 --seq 16
@@ -10,13 +10,22 @@ parallelism (``--etp``).
       --smoke --device cpu --steps 4 --batch 4 --seq 16
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch paper-mixtral-16x2b --smoke --etp 2 --device cpu --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
+      --smoke --device cpu --steps 4 --batch 4 --seq 16 --ckpt-dir /tmp/ck
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
       --smoke --steps 20 --batch 8 --seq 128
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
+      --layers 8 --batch 8 --seq 512 --steps 4 [--remat]
 
 Runs on the CUDA device unless ``--device cpu`` is given; f32 weights,
-random from ``--seed``, drawn on the device.  The mesh, multi-host,
-checkpoint, telemetry and replication flags of the reference belong to
-paths not ported yet, and are refused with an error.
+random from ``--seed``, drawn on the device.  ``--remat`` rematerialises
+every block in the backward (off by default, as the reference's
+single-device ``RuntimeConfig(remat=False)``; the reference's single-device
+branch drops the flag, this driver honours it).  ``--ckpt-dir`` saves the
+trained model's reference tree (``decoder.reference_tree``) at the end in
+the reference's checkpoint files, with {"arch": the config's name}.  The
+mesh, multi-host, telemetry, replication and pre-warm flags of the
+reference belong to paths not ported yet, and are refused with an error.
 """
 from __future__ import annotations
 
@@ -25,8 +34,10 @@ import dataclasses
 
 import torch
 
+from ..checkpoint import save_checkpoint
 from ..configs import get_config
 from ..data.synthetic import SyntheticLM
+from ..models import decoder as dec
 from ..optim.adamw import AdamWConfig
 from ..optim.schedule import warmup_cosine
 from ..train.loop import init_train_state, make_train_step
@@ -40,9 +51,6 @@ def _refuse_unported(ap: argparse.ArgumentParser, args) -> None:
     if args.num_hosts != 1 or args.coordinator or args.host_id:
         ap.error("--coordinator/--num-hosts/--host-id: multi-host training "
                  "is not ported yet (ROADMAP.md, Queue 1)")
-    if args.ckpt_dir:
-        ap.error("--ckpt-dir: checkpointing is not ported yet (ROADMAP.md, "
-                 "Queue 1)")
     if args.telemetry_record or args.trace_out or args.prewarm \
             or args.replication:
         ap.error("--telemetry-record/--trace-out/--prewarm/--replication: "
@@ -69,6 +77,11 @@ def main(argv=None) -> int:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--csv", default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--remat", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="rematerialise every block in the backward")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="save the trained parameters here at the end")
     g = ap.add_argument_group("not ported yet (refused)")
     g.add_argument("--data-axis", type=int, default=0)
     g.add_argument("--model-axis", type=int, default=1)
@@ -76,7 +89,6 @@ def main(argv=None) -> int:
     g.add_argument("--coordinator", default=None)
     g.add_argument("--num-hosts", type=int, default=1)
     g.add_argument("--host-id", type=int, default=0)
-    g.add_argument("--ckpt-dir", default=None)
     g.add_argument("--telemetry-record", action="store_true")
     g.add_argument("--trace-out", default=None)
     g.add_argument("--prewarm", action="store_true")
@@ -97,13 +109,18 @@ def main(argv=None) -> int:
     step = make_train_step(
         cfg, opt_cfg=opt_cfg, n_micro=args.n_micro, device=args.device,
         lr_fn=lambda s: warmup_cosine(s, args.lr, warmup=20,
-                                      total=args.steps))
+                                      total=args.steps), remat=args.remat)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq, batch=args.batch,
                        noise=0.05, n_maps=4, seed=args.seed + 1)
     with MetricLogger(csv_path=args.csv, print_every=10) as logger:
         for i, batch in zip(range(args.steps), data):
             ts, m = step(ts, batch)
             logger.log(i, m)
+    if args.ckpt_dir:
+        path = save_checkpoint(args.ckpt_dir, args.steps,
+                               dec.reference_tree(ts.model),
+                               {"arch": cfg.name})
+        print("saved", path)
     first = logger.history[0]["loss"]
     last = logger.history[-1]["loss"]
     print(f"arch={cfg.name} device={ts.model.device} loss {first:.4f} -> "

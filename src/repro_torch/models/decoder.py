@@ -1,7 +1,6 @@
 """The decoder (twin of ``repro.models.decoder``): the decode step, the
 full-sequence forward and the training loss of global-attention decoders,
-dense or MicroEP MoE, and the decode step and full-sequence forward of
-RWKV-6 decoders.
+dense or MicroEP MoE, and of RWKV-6 decoders.
 
 The MoE dispatch runs the full MicroEP machinery on the degenerate
 single-device group (G=1, ``local_moe_apply``): top-k gating, counts, the
@@ -14,21 +13,23 @@ its gradient goes through K1b on a CUDA device.  Expert tensor parallelism
 it is routed to (``expand_router_etp``).  A dense block's FFN is plain
 matrix products, as in the reference.  The full-sequence forward (serving
 prefill, evaluation, training) runs every RWKV-6 block's recurrence
-through K3 on a CUDA device, and the decode step through K3s (K3 with the
-slot's state carried in and out).  The reference's stacked
-``layers_scan`` parameters are one module per layer here, and its
-``lax.scan`` over layers a Python loop.
+through K3 on a CUDA device, its gradient through K3b, and the decode step
+through K3s (K3 with the slot's state carried in and out).  ``forward`` and
+``loss_fn`` take ``remat``: each block is then rematerialised in the
+backward (``torch.utils.checkpoint``, as the reference wraps its block in
+``jax.checkpoint`` when ``Runtime.remat`` is set), so a training step keeps
+one block's activations at a time and runs every block's forward twice.
+The reference's stacked ``layers_scan`` parameters are one module per
+layer here, and its ``lax.scan`` over layers a Python loop.
 
 Supported: ``decode_step``, ``forward`` and ``loss_fn`` on decoders whose
 every layer is a global-attention block (``pattern == ("attn",)``, no
 sliding window, no M-RoPE, no frontend stub) with a dense FFN or an MoE of
 any ``etp`` — olmoe-1b-7b, paper-gpt-32x1.3b, paper-mixtral-16x2b,
-dbrx-132b, qwen1.5-0.5b, gemma-2b; ``decode_step`` and ``forward`` on
-decoders whose every layer is an RWKV-6 block (``pattern == ("rwkv",)``,
-no MoE) — rwkv6-7b.  Parameters are created with ``requires_grad=False``:
-serving builds no graph, and training turns them on with
-``model.requires_grad_(True)``.  RWKV-6 training (K3's backward) is a later
-slice.
+dbrx-132b, qwen1.5-0.5b, gemma-2b — and on decoders whose every layer is
+an RWKV-6 block (``pattern == ("rwkv",)``, no MoE) — rwkv6-7b.
+Parameters are created with ``requires_grad=False``: serving builds no
+graph, and training turns them on with ``model.requires_grad_(True)``.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -122,10 +124,11 @@ def check_forward(cfg: ArchConfig) -> None:
 
 def check_trainable(cfg: ArchConfig) -> None:
     """Raise unless the training step runs ``cfg``."""
-    if not _is_attention(cfg):
+    if not _is_rwkv_decoder(cfg) and not _is_attention(cfg):
         raise ValueError(
-            f"{cfg.name}: the port trains {_ATTENTION}; training RWKV-6 "
-            f"needs K3's backward and other blocks are not ported yet")
+            f"{cfg.name}: the port trains RWKV-6 decoders (pattern "
+            f"('rwkv',), no MoE) and {_ATTENTION}; other blocks are not "
+            f"ported yet")
 
 
 def _attn_cfg(cfg: ArchConfig) -> AttnConfig:
@@ -375,8 +378,10 @@ def _stack_trees(trees: List[dict]):
     if isinstance(first, dict):
         return {k: _stack_trees([t[k] for t in trees]) for k in first}
     if isinstance(first, (tuple, list)):
-        return tuple(_stack_trees([t[i] for t in trees])
-                     for i in range(len(first)))
+        items = [_stack_trees([t[i] for t in trees])
+                 for i in range(len(first))]
+        return type(first)(*items) if hasattr(first, "_fields") \
+            else tuple(items)
     return np.stack(trees)
 
 
@@ -385,7 +390,8 @@ def reference_tree(model: Decoder,
     """The inverse of :func:`load_reference_params`: the reference's
     parameter tree (``layout="scan"``: per-pattern-position blocks stacked
     [reps, ...] under "layers_scan", the remainder under "layers_rem") with
-    float32 numpy leaves.
+    float32 numpy leaves, an MoE's "experts" an :class:`ExpertParams` as
+    the reference's (so a checkpoint of it has the reference's keys).
 
     The leaves come from ``leaves``, a {parameter name: tensor} dict such as
     gradients or Adam moments keyed like ``model.named_parameters()``; by
@@ -428,9 +434,9 @@ def reference_tree(model: Decoder,
                 tree["ffn"] = nested(f"{pre}.ffn", blk.ffn)
             else:
                 tree["moe"] = {"router": get(f"{pre}.moe.router"),
-                               "experts": tuple(
+                               "experts": ExpertParams(*(
                                    get(f"{pre}.moe.{w}")
-                                   for w in ("w_gate", "w_up", "w_down"))}
+                                   for w in ExpertParams._fields))}
         blocks.append(tree)
     out = {"embed": get("embed"),
            "final_norm": norm("final_norm", model.final_norm)}
@@ -468,7 +474,8 @@ def _w_out(model: Decoder) -> torch.Tensor:
 
 def forward(model: Decoder, batch: dict,
             solver_states: Optional[List[SolverState]] = None,
-            last_only: bool = False, return_hidden: bool = False):
+            last_only: bool = False, return_hidden: bool = False,
+            remat: bool = False):
     """Full forward pass over ``batch`` {"tokens": int[B, T]} -> (logits
     [B, T, V], MoEMetrics summed over layers, new solver states), as the
     reference's ``forward``.
@@ -479,23 +486,41 @@ def forward(model: Decoder, batch: dict,
     RWKV-6) returns ``solver_states`` as given.  ``last_only`` computes
     logits for the final position only ([B, 1, V], serving prefill);
     ``return_hidden`` returns the final-normed hidden state [B, T, dm]
-    instead of logits."""
+    instead of logits.
+
+    ``remat`` rematerialises every block in the backward
+    (``checkpoint(..., use_reentrant=False)``, the reference's
+    ``jax.checkpoint`` of its block under ``Runtime.remat``): the forward
+    keeps only each block's input, and the backward runs the block again.
+    The solver state handed to a block is never modified, so the second run
+    takes the same warm start and makes the same schedule, and the
+    gradients equal those without remat.  The launch counts then show the
+    second run: K3, K4 and K1 twice a layer and micro-batch, K1b and K3b
+    once."""
     cfg = model.cfg
     check_forward(cfg)
     tokens = batch["tokens"]
-    x = model.embed[tokens]                              # [B, T, dm]
+    # [B, T, dm]; F.embedding's backward sums a token's rows in a fixed
+    # order, where the backward of ``embed[tokens]`` does not on the CPU
+    x = F.embedding(tokens, model.embed)
     acc = _zero_moe(cfg, x.device)
     new_states = solver_states
+
+    def run(blk, *args):
+        if remat:
+            return checkpoint(blk, *args, use_reentrant=False)
+        return blk(*args)
+
     if _is_rwkv(cfg):
         for blk in model.blocks:
-            x = blk(x)
+            x = run(blk, x)
     else:
         b, t = tokens.shape
         positions = torch.arange(t, device=x.device)[None].expand(b, t)
         new_states = []
         for i, blk in enumerate(model.blocks):
             st = None if solver_states is None else solver_states[i]
-            x, m, st = blk(x, positions, st)
+            x, m, st = run(blk, x, positions, st)
             acc = _accum(acc, m)
             new_states.append(st)
         if not cfg.moe:
@@ -545,13 +570,15 @@ def lm_loss_chunked(x: torch.Tensor, w_out: torch.Tensor,
 
 def loss_fn(model: Decoder, batch: dict,
             solver_states: Optional[List[SolverState]] = None,
-            aux_coeff: float = 1e-4, z_coeff: float = 1e-4):
+            aux_coeff: float = 1e-4, z_coeff: float = 1e-4,
+            remat: bool = False):
     """Scalar training loss (CE + MoE aux) of ``batch`` {"tokens",
-    "labels": int[B, T]} -> (loss, Metrics, new solver states)."""
+    "labels": int[B, T]} -> (loss, Metrics, new solver states); ``remat``
+    as :func:`forward`'s."""
     cfg = model.cfg
     check_trainable(cfg)
     hidden, moe, new_states = forward(model, batch, solver_states,
-                                      return_hidden=True)
+                                      return_hidden=True, remat=remat)
     ce = lm_loss_chunked(hidden, _w_out(model), batch["labels"])
     loss = ce + aux_coeff * moe.aux_loss + z_coeff * moe.z_loss
     metrics = Metrics(loss=loss, ce_loss=ce, aux_loss=moe.aux_loss,

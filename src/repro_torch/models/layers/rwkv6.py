@@ -5,8 +5,8 @@ decode.
 Time mixing: token-shift interpolation (data-dependent through a LoRA on
 the shift mix), r/k/v/g projections, per-channel decay w_t =
 exp(-exp(w_proj(x_t))), the WKV recurrence (``ops.wkv6``: K3 on a CUDA
-device from a zero state, K3s from a carried state), a group norm over
-heads and a gated output.  Channel mixing: the RWKV squared-ReLU mixer.
+device from a zero state, its gradient K3b, and K3s from a carried state),
+a group norm over heads and a gated output.  Channel mixing: the RWKV squared-ReLU mixer.
 Parameters keep the reference's names and layout (``x @ W`` with W [in,
 out]).
 

@@ -12,7 +12,9 @@
 The reference's ``LayoutHooks.to_working`` is the identity here, as its
 ``cast_only`` f32 default is on one device: the working parameters are the
 master parameters.  On a CUDA device every MoE layer of every micro-batch
-runs K4 (the schedule) and K1 (the expert FFN) forward and K1b backward.
+runs K4 (the schedule) and K1 (the expert FFN) forward and K1b backward,
+and every RWKV-6 layer K3 forward and K3b backward.  With ``remat`` every
+block runs its forward again in the backward (the forward kernels twice).
 """
 from __future__ import annotations
 
@@ -75,6 +77,7 @@ def make_train_step(
     aux_coeff: float = 1e-4,
     z_coeff: float = 1e-4,
     device="cuda",
+    remat: bool = False,
 ):
     """Build ``train_step(state, batch) -> (state, metrics dict)``.
 
@@ -84,7 +87,10 @@ def make_train_step(
     the device: "loss", "ce_loss", "aux_loss", "z_loss" and "balance"
     averaged over micro-batches, "overflow" summed, "grad_norm" and "lr".
     After a step, every parameter's ``.grad`` holds the step's averaged
-    gradient (before clipping)."""
+    gradient (before clipping).  ``remat`` rematerialises every block in
+    the backward (``decoder.forward``'s), as the reference's
+    ``make_train_step(cfg, rt=Runtime(remat=True))``: the same gradients
+    for less activation memory and a second forward of each block."""
     dec.check_trainable(cfg)
     device = dec.require_device(device)
 
@@ -99,7 +105,8 @@ def make_train_step(
         solver, msum = ts.solver, None
         for mb in _split_micro(batch, n_micro, model.device):
             loss, metrics, solver = dec.loss_fn(
-                model, mb, solver, aux_coeff=aux_coeff, z_coeff=z_coeff)
+                model, mb, solver, aux_coeff=aux_coeff, z_coeff=z_coeff,
+                remat=remat)
             loss.backward()     # sums into .grad, micro-batch by micro-batch
             m = [v.detach().float() for v in metrics]
             msum = m if msum is None else [a + b for a, b in zip(msum, m)]

@@ -11,6 +11,8 @@ import torch
 from repro.models.layers import attention as rattn
 from repro_torch.models.layers import attention as tattn
 
+import torch_threads  # noqa: F401
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 B, T = 2, 16
 

@@ -12,6 +12,8 @@ from repro_torch.engine import baseline_systems
 from repro_torch.launch.time_k4 import zipf_input
 from repro_torch.moe.baselines import baseline_max_load
 
+import torch_threads  # noqa: F401
+
 
 @pytest.mark.parametrize("skew", [0.0, 0.8, 1.6])
 def test_baselines_equal(skew):

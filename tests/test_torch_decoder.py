@@ -21,6 +21,7 @@ from repro_torch.configs.base import ArchConfig as TorchArchConfig
 from repro_torch.models import decoder as tdec
 from repro_torch.moe.router import top_k_gating
 from torch_cases import DENSE_ETP_CASES
+import torch_threads  # noqa: F401
 
 B, MAX_SEQ = 3, 12
 

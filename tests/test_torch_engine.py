@@ -23,6 +23,8 @@ from repro_torch.engine import (ConfigError, DeviceProfile, MicroEPEngine,
                                 profile_slot_budgets, profile_weights)
 from repro_torch.engine.config import _canonical_profiles
 
+import torch_threads  # noqa: F401
+
 
 @pytest.mark.parametrize("cls,ref_cls,kwargs", [
     (SchedulePolicy, RefPolicy, dict(mode="vanilla", sweeps=3,

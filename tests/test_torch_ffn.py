@@ -12,6 +12,8 @@ import torch
 from repro.models.layers import ffn as rffn
 from repro_torch.models.layers import ffn as tffn
 
+import torch_threads  # noqa: F401
+
 DM, DFF = 48, 80
 
 

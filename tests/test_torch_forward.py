@@ -26,6 +26,7 @@ from repro_torch.launch.runtime import make_forward_fn
 from repro_torch.models import decoder as tdec
 from repro_torch.serve import ServingSession
 from torch_cases import DENSE_ETP_CASES
+import torch_threads  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, T = 2, 16

@@ -1,9 +1,10 @@
-"""Tests of the port that need the card: K1, K1b, K2, K3, K3s and K4 (CUDA
-kernels, with no CPU or interpret mode) against their plain versions on the
-same inputs, K1, K1b, K3 and K3s against their own arithmetic in plain
-PyTorch, K1b, K3 and K3s against float64, the training step (MoE, expert
-tensor parallelism and dense) and the decode step (RWKV-6 and expert tensor
-parallelism) on the card against the CPU's plain path.
+"""Tests of the port that need the card: K1, K1b, K2, K3, K3s, K3b and K4
+(CUDA kernels, with no CPU or interpret mode) against their plain versions
+on the same inputs, K1, K1b, K3 and K3s against their own arithmetic in
+plain PyTorch, K1b, K3, K3s and K3b against float64, the training step
+(MoE, expert tensor parallelism, dense and RWKV-6, also rematerialised)
+and the decode step (RWKV-6 and expert tensor parallelism) on the card
+against the CPU's plain path.
 They skip without a CUDA device.  This file imports no JAX, so it also runs where JAX
 is not installed:
 
@@ -16,7 +17,8 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.grouped_matmul import (grouped_ffn_flat_bwd_cuda,
                                                grouped_ffn_flat_cuda)
-from repro_torch.kernels.wkv6_chunk import wkv6_cuda, wkv6_state_cuda
+from repro_torch.kernels.wkv6_chunk import (wkv6_bwd_cuda, wkv6_cuda,
+                                            wkv6_state_cuda)
 from repro_torch.launch import check_train, time_k1b, time_k3, time_k4
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -739,11 +741,10 @@ def test_cuda_train_step_runs_each_kernel_per_layer_and_micro_batch():
             ts, m = step(ts, data.batch_at(i))
             assert torch.isfinite(m["loss"]) and torch.isfinite(
                 m["grad_norm"])
-    expect = 2 * 2 * dec.n_moe_layers(cfg)
     assert {k: v - before[k] for k, v in
-            check_train.kernel_launches().items()} == dict.fromkeys(
-        ("K1", "K1b", "K4"), expect)
-    assert not any(plain.values()), plain
+            check_train.kernel_launches().items()} == \
+        check_train.expected_launches(cfg, 2, steps=2)
+    assert dec.n_moe_layers(cfg) and not any(plain.values()), plain
 
 
 def _k3s_case(bh, t, d, dtype, offset=0, seed=0):
@@ -898,3 +899,115 @@ def test_cuda_rwkv_decode_matches_cpu():
     assert (wkv6_cuda.launches - before[0],
             wkv6_state_cuda.launches - before[1]) == (0, 6 * cfg.num_layers)
     assert not plain_calls
+
+
+K3B_CASES = [(3, t, d) for d in time_k3.BWD_D for t in time_k3.BWD_T] + \
+    [(time_k3.TRAIN_BATCH * time_k3.HEADS, time_k3.TRAIN_SEQ,
+      time_k3.HEAD_DIM)]
+
+
+def _k3b_case(bh, t, d, seed=0):
+    """q, k, v, lw (rwkv6-7b's decays), u and an output gradient, drawn
+    with numpy, on the card in f32."""
+    rng = np.random.default_rng(seed + bh * 1000 + t * 10 + d)
+    q, k, v = (rng.standard_normal((bh, t, d)) * 0.5 for _ in range(3))
+    lw = -np.exp(rng.standard_normal((bh, t, d)) * 0.5 - 5.0)
+    u = rng.standard_normal((bh, d)) * 0.5
+    do = rng.standard_normal((bh, t, d))
+    return [torch.tensor(a, dtype=torch.float32, device="cuda")
+            for a in (q, k, v, lw, u, do)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,t,d", K3B_CASES)
+def test_cuda_k3b_matches_plain_version(bh, t, d):
+    """K3b against ``ref.wkv6_bwd_ref`` on the card over phase 20's shapes
+    (T on both sides of 16 and up to 2048, D 32-128, and the training
+    geometry): each output within rtol 1e-4 and an atol of 1e-5 of its
+    largest magnitude (``time_k1b.max_err``: the kernel fuses what the
+    plain version rounds twice); two calls equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K3b is a CUDA kernel)")
+    x = _k3b_case(bh, t, d)
+    got = wkv6_bwd_cuda(*x)
+    torch.cuda.synchronize()
+    for name, a, b in zip(time_k3.BWD_OUTPUTS, got, ref.wkv6_bwd_ref(*x)):
+        assert a.dtype == torch.float32
+        time_k1b.max_err(f"K3b ({bh}, {t}, {d}) {name}", a, b)
+    again = wkv6_bwd_cuda(*x)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_cuda_k3b_checks_of_chip_smoke():
+    """``time_k3.check_bwd``, ``chip_smoke.py`` phase 20: the float64 guard
+    (each output at most 2x the f32 plain version's error from float64, at
+    T 512 and 2048), the repeat and K3 at the training geometry; its own
+    launches uncounted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K3b is a CUDA kernel)")
+    before = wkv6_cuda.launches, wkv6_bwd_cuda.launches
+    r = time_k3.check_bwd(torch.device("cuda", 0))
+    for t in time_k3.BWD_GUARD_T:
+        for err, err_plain in r["guard"][t].values():
+            assert err <= 2 * err_plain
+    assert (wkv6_cuda.launches, wkv6_bwd_cuda.launches) == before
+
+
+@pytest.mark.gpu
+def test_cuda_wkv6_autograd_is_k3b():
+    """On the card the gradient of ``ops.wkv6`` is K3b (through
+    ``WKV6``): one K3 and one K3b launch, the gradients K3b's own and
+    within ``max_err`` of the plain version; no gradient asked, no graph;
+    the state path refuses a gradient, and a bf16 backward raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K3 and K3b are CUDA kernels)")
+    x = _k3b_case(3, 37, 64, seed=5)
+    inputs = [a.clone().requires_grad_(True) for a in x[:5]]
+    before = wkv6_cuda.launches, wkv6_bwd_cuda.launches
+    ops.wkv6(*inputs).backward(x[5])
+    assert (wkv6_cuda.launches - before[0],
+            wkv6_bwd_cuda.launches - before[1]) == (1, 1)
+    direct = wkv6_bwd_cuda(*x)
+    for name, a, b, c in zip(time_k3.BWD_OUTPUTS, inputs, direct,
+                             ref.wkv6_bwd_ref(*x)):
+        assert torch.equal(a.grad, b), name
+        time_k1b.max_err(f"autograd {name}", a.grad, c)
+    with torch.no_grad():
+        assert ops.wkv6(*inputs).grad_fn is None
+    with pytest.raises(NotImplementedError, match="state"):
+        ops.wkv6(*inputs, state=torch.zeros(3, 64, 64, device="cuda"))
+    half = [a.to(torch.bfloat16).requires_grad_(True) for a in x[:5]]
+    with pytest.raises(TypeError, match="float32"):
+        ops.wkv6(*half).float().sum().backward()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["rwkv6-7b", "olmoe-1b-7b"])
+def test_cuda_remat_step_equals_step_without_remat(name):
+    """One train step of the smoke config on the card without and with
+    every block rematerialised, from identical weights: every gradient
+    equal bit for bit; the forward kernels (K3, or K4 and K1) launched
+    twice as often with remat, the backward ones (K3b, K1b) as often."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K3, K3b, K1, K1b and K4)")
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import decoder as dec
+    from repro_torch.train.loop import init_train_state, make_train_step
+    cfg = get_config(name).smoke()
+    model = dec.init_params(cfg, seed=4, device="cuda")
+    batch = SyntheticLM(vocab=cfg.vocab, seq_len=32, batch=4,
+                        seed=9).batch_at(0)
+    grads = {}
+    for remat, m in ((False, copy.deepcopy(model)), (True, model)):
+        ts = init_train_state(cfg, device="cuda", model=m)
+        before = check_train.kernel_launches()
+        make_train_step(cfg, n_micro=2, remat=remat)(ts, batch)
+        assert {k: v - before[k] for k, v in
+                check_train.kernel_launches().items()} == \
+            check_train.expected_launches(cfg, 2, remat=remat)
+        grads[remat] = {n: p.grad for n, p in m.named_parameters()}
+    for n, g in grads[False].items():
+        assert torch.equal(g, grads[True][n]), n

@@ -18,6 +18,8 @@ from repro_torch.configs import list_configs as torch_list_configs
 from repro_torch.engine import ServeConfig
 from repro_torch.serve import ServingSession
 
+import torch_threads  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]

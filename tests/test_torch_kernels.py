@@ -16,6 +16,8 @@ from repro_torch.kernels.grouped_matmul import (grouped_ffn_cuda,
                                                grouped_ffn_flat_bwd_cuda,
                                                grouped_ffn_flat_cuda)
 
+import torch_threads  # noqa: F401
+
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 

@@ -8,6 +8,8 @@ from repro.core import lp as ref_lp
 from repro.core.placement import random_placement
 from repro_torch.core import lp
 
+import torch_threads  # noqa: F401
+
 
 def _instance(seed, rows=2, cols=4, e=16):
     rng = np.random.default_rng(seed)

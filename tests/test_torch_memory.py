@@ -15,6 +15,8 @@ from repro_torch.configs import get_config as torch_get_config
 from repro_torch.core import memory, replacement
 from repro_torch.core.placement import latin_placement
 
+import torch_threads  # noqa: F401
+
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "paper-gpt-32x1.3b",
                                   "rwkv6-7b"])

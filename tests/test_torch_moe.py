@@ -23,6 +23,8 @@ from repro_torch.engine import MicroEPEngine as TorchEngine
 from repro_torch.models import decoder as tdec
 from repro_torch.moe import dispatch as TD
 
+import torch_threads  # noqa: F401
+
 PLAN_FIELDS = ("send_pos", "local_pos", "flat_pos", "group_start",
                "group_end", "overflow", "valid", "is_local")
 

@@ -12,6 +12,8 @@ from repro.optim.schedule import warmup_cosine as ref_warmup_cosine
 from repro_torch.optim import adamw as tadamw
 from repro_torch.optim.schedule import warmup_cosine
 
+import torch_threads  # noqa: F401
+
 TOL = dict(rtol=1e-6, atol=1e-6)
 SHAPES = {"embed": (16, 8), "router": (8, 4), "scale": (8,),
           "experts": (4, 8, 6)}

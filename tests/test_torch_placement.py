@@ -12,6 +12,8 @@ from repro.engine import placement_strategies as ref_strategies
 from repro_torch.core import graphs, placement as pl
 from repro_torch.engine import placement_strategies
 
+import torch_threads  # noqa: F401
+
 
 def _loads(seed, e):
     return np.random.default_rng(seed).pareto(1.2, e) * 100 + 1

@@ -20,6 +20,8 @@ from repro_torch.configs.base import ArchConfig as TorchArchConfig
 from repro_torch.models import decoder as tdec
 from repro_torch.models.layers.rwkv6 import RWKVState as TorchRWKVState
 
+import torch_threads  # noqa: F401
+
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 

@@ -24,6 +24,8 @@ from repro_torch.engine import SchedulePolicy as TorchPolicy
 from repro_torch.kernels import build, ops, sched
 from repro_torch.launch import time_k4
 
+import torch_threads  # noqa: F401
+
 
 def _engines(num_experts, grid, placement, sequencing):
     if placement.startswith("seeded"):          # 2-3 replicas an expert

@@ -24,6 +24,7 @@ from repro_torch.serve import ServingSession as TorchServingSession
 from repro_torch.serve import poisson_trace as torch_poisson_trace
 from repro_torch.serve import replay_trace as torch_replay_trace
 from torch_cases import DENSE_ETP_CASES, port_config
+import torch_threads  # noqa: F401
 
 GOLDEN = pathlib.Path(__file__).parent / "golden" / \
     "serve_report_colocated.json"

@@ -8,6 +8,8 @@ import numpy as np
 from repro.data.synthetic import SyntheticLM as RefSyntheticLM
 from repro_torch.data.synthetic import SyntheticLM, make_batch
 
+import torch_threads  # noqa: F401
+
 
 def test_batch_layout_matches_reference():
     ours = SyntheticLM(vocab=512, seq_len=16, batch=4, seed=1).batch_at(0)

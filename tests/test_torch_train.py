@@ -1,9 +1,10 @@
 """The port's training step (``repro_torch.train.loop.make_train_step``)
 against the reference's ``jax.jit(make_train_step(cfg, n_micro=2))`` on the
 smoke configs of olmoe-1b-7b and paper-gpt-32x1.3b (ln norm, gelu_mlp ->
-swiglu experts), paper-mixtral-16x2b with expert tensor parallelism 2, and
-the dense qwen1.5-0.5b, gemma-2b (also with its full head shape) and
-paper-gpt-32x1.3b without MoE.  Both start from identical weights (the reference tree
+swiglu experts), rwkv6-7b (autograd of the plain recurrence on the CPU;
+the reference's ``jax.grad`` of its own), paper-mixtral-16x2b with expert
+tensor parallelism 2, and the dense qwen1.5-0.5b, gemma-2b (also with its
+full head shape) and paper-gpt-32x1.3b without MoE.  Both start from identical weights (the reference tree
 carried over by ``load_reference_params``) and take one identical numpy
 batch.  Tolerances are those of ``tests/test_distributed.py``'s step check:
 the loss within 2e-4, no overflow, the Adam moments within rtol 2e-2 / atol
@@ -29,8 +30,9 @@ from repro_torch.launch import train as train_cli
 from repro_torch.models import decoder as tdec
 from repro_torch.train.loop import init_train_state, make_train_step
 from torch_cases import DENSE_ETP_CASES
+import torch_threads  # noqa: F401
 
-CONFIGS = ["olmoe-1b-7b", "paper-gpt-32x1.3b", *DENSE_ETP_CASES]
+CONFIGS = ["olmoe-1b-7b", "paper-gpt-32x1.3b", "rwkv6-7b", *DENSE_ETP_CASES]
 B, T, N_MICRO = 4, 16, 2
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 MOMENT_TOL = dict(rtol=2e-2, atol=2e-4)
@@ -163,11 +165,19 @@ def test_train_entry_points_default_to_cuda():
 
 
 def test_train_refuses_rwkv_configs():
-    cfg = TorchArchConfig(**dataclasses.asdict(get_config("rwkv6-7b").smoke()))
-    with pytest.raises(ValueError, match="K3's backward"):
-        make_train_step(cfg, device="cpu")
-    with pytest.raises(ValueError, match="K3's backward"):
-        init_train_state(cfg, device="cpu")
+    """RWKV-6 decoders train since K3b; an RWKV-6 config the port does not
+    build (MoE in its blocks, or a frontend stub) is still refused."""
+    base = get_config("rwkv6-7b").smoke()
+    init_train_state(TorchArchConfig(**dataclasses.asdict(base)),
+                     device="cpu")
+    for change in (dict(moe=True, num_experts=4, top_k=2, moe_d_ff=64),
+                   dict(frontend_stub="audio")):
+        cfg = TorchArchConfig(**dataclasses.asdict(
+            dataclasses.replace(base, **change)))
+        with pytest.raises(ValueError, match="not ported yet"):
+            make_train_step(cfg, device="cpu")
+        with pytest.raises(ValueError, match="not ported yet"):
+            tdec.check_trainable(cfg)
 
 
 def test_train_cli_runs_on_cpu(tmp_path, capsys):
@@ -188,10 +198,12 @@ def test_train_cli_runs_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("arch,flags", [
     ("qwen1.5-0.5b", []), ("gemma-2b", []),
-    ("paper-mixtral-16x2b", ["--etp", "2"])], ids=["qwen", "gemma", "etp"])
+    ("paper-mixtral-16x2b", ["--etp", "2"]),
+    ("rwkv6-7b", ["--remat"])], ids=["qwen", "gemma", "etp", "rwkv"])
 def test_train_cli_runs_dense_and_etp_on_cpu(arch, flags, capsys):
-    """The launcher's CPU drive of a dense decoder and of expert tensor
-    parallelism: finite losses; balance 0 without MoE layers."""
+    """The launcher's CPU drive of a dense decoder, of expert tensor
+    parallelism and of an RWKV-6 decoder (with remat): finite losses;
+    balance 0 without MoE layers."""
     assert train_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
                            "--steps", "2", "--batch", "2", "--seq", "8",
                            "--n-micro", "1", *flags]) == 0
@@ -200,9 +212,10 @@ def test_train_cli_runs_dense_and_etp_on_cpu(arch, flags, capsys):
     assert "nan" not in out.split("device=cpu loss")[1]
 
 
-@pytest.mark.parametrize("flags", [["--data-axis", "2"], ["--ckpt-dir", "x"],
+@pytest.mark.parametrize("flags", [["--data-axis", "2"],
+                                   ["--telemetry-record"],
                                    ["--num-hosts", "2"], ["--replication"]],
-                         ids=["mesh", "checkpoint", "multi-host",
+                         ids=["mesh", "telemetry", "multi-host",
                               "replication"])
 def test_train_cli_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit):

@@ -17,6 +17,8 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.wkv6_chunk import wkv6_cuda, wkv6_state_cuda
 
+import torch_threads  # noqa: F401
+
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=5e-2, atol=5e-2)
 
