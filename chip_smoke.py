@@ -174,15 +174,17 @@ Phases, in order; any failure raises and exits nonzero:
      four steps of 8 × 512 tokens in 2 micro-batches, as phase 12 (K4, K1
      and K1b each 8 times a step); then one train step of its smoke config
      with etp 2 card vs CPU, as phase 13;
- 20. K3b (K3's backward, ``src/repro_torch/csrc/wkv6_bwd.cu``) against its
-     plain version ``ref.wkv6_bwd_ref`` (``launch/time_k3.py
-     --backward``): at rwkv6-7b's training geometry (BH 4 x 64 heads, T
-     512, D 64, its decays) and at T 1, 15, 16, 17, 100, 2048 with D 32,
-     64, 128, within rtol 1e-4 and an atol of 1e-5 of each output's largest
-     magnitude; two calls equal bit for bit; each output at most twice as
-     far from the float64 evaluation as the f32 plain version, at T 512 and
-     2048; K3 at the training geometry against its plain version; K3b and
-     K3 timed there beside their plain versions and bounds;
+ 20. K3b (K3's backward, ``src/repro_torch/csrc/wkv6_bwd.cu``, sub-chunks
+     on the tensor cores) against its plain version
+     ``ref.wkv6_bwd_subchunk_ref`` (``launch/time_k3.py --backward``): at
+     rwkv6-7b's training geometry (BH 4 x 64 heads, T 512, D 64, its
+     decays) and at T 1, 15, 16, 17, 100, 2048 with D 32, 64, 128, within
+     rtol 1e-4 and an atol of 1e-5 of each output's largest magnitude; two
+     calls equal bit for bit; each output at most twice as far from the
+     float64 evaluation as the f32 step-order plain version
+     ``ref.wkv6_bwd_ref``, at T 512 and 2048; K3 at the training geometry
+     against its plain version; K3b and K3 timed there beside their plain
+     versions and bounds (K3b's 3xTF32 bound);
  21. train rwkv6-7b at full width, depth cut to 8 of its 32 layers (7.29 B
      parameters would need 116.6 GB of f32 master, gradients and two Adam
      moments; 8 layers hold 2.024 B, 32.4 GB): (a) four steps of 8 × 512

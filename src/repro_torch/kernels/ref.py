@@ -5,7 +5,9 @@ these against the JAX oracles, and ``chip_smoke.py`` holds each kernel
 against its plain version on the card, on inputs drawn by ``wkv6_inputs``
 for K3.  ``grouped_ffn_flat_bwd_ref`` is K1b's: the gradient of K1, which
 the reference takes with ``jax.grad`` of its plain K1, and
-``grouped_ffn_flat_bwd_3xtf32_ref`` repeats K1b's own 3xTF32 arithmetic.
+``grouped_ffn_flat_bwd_3xtf32_ref`` repeats K1b's own 3xTF32 arithmetic;
+``wkv6_bwd_ref`` is K3's gradient step by step, and
+``wkv6_bwd_subchunk_ref`` repeats K3b's sub-chunk arithmetic.
 K4's plain version, ``schedule_ref``, composes the scheduler core
 (``repro_torch.core``), whose reference twin is the in-graph solver,
 rounding and routing of ``repro.core``.
@@ -26,7 +28,7 @@ __all__ = ["schedule_ref", "grouped_ffn_ref", "grouped_ffn_flat_ref",
            "grouped_ffn_flat_bwd_ref", "grouped_ffn_flat_bwd_3xtf32_ref",
            "grouped_ffn_flat_blocked_ref",
            "wkv6_chunk_ref", "wkv6_subchunk_ref", "wkv6_step_ref",
-           "wkv6_bwd_ref", "wkv6_inputs"]
+           "wkv6_bwd_ref", "wkv6_bwd_subchunk_ref", "wkv6_inputs"]
 
 
 def _act(h_gate: torch.Tensor, h_up: torch.Tensor, activation: str):
@@ -348,6 +350,19 @@ def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return al @ bh + ah @ bl + ah @ bh
 
 
+def _subchunk_cumdecay(l2: torch.Tensor):
+    """(c_{t-1}, c_t) of one sub-chunk, [BH, SUB, D]: the cumulative
+    log-decays in log2 units from the sub-chunk's start, summed in step
+    order as K3 and K3b sum them."""
+    run = torch.zeros_like(l2[:, 0])
+    c_prev, c = [], []
+    for i in range(l2.shape[1]):
+        c_prev.append(run)
+        run = run + l2[:, i]
+        c.append(run)
+    return torch.stack(c_prev, 1), torch.stack(c, 1)
+
+
 def _subchunk_score(q, k, u, c, c_prev):
     """K3's score of one sub-chunk, [BH, SUB, SUB], with c and c_prev the
     cumulative log-decays in log2 units: every decay 2^(c_{t-1} - c_s),
@@ -415,13 +430,7 @@ def wkv6_subchunk_ref(
     outs = []
     for t0 in range(0, t + pad, SUB):
         qs, ks, vs = (a[:, t0:t0 + SUB] for a in (qf, kf, vf))
-        run = torch.zeros((bh, d), dtype=torch.float32, device=q.device)
-        c_prev, c = [], []                               # c_{t-1}, c_t
-        for i in range(SUB):
-            c_prev.append(run)
-            run = run + l2[:, t0 + i]
-            c.append(run)
-        c_prev, c = torch.stack(c_prev, 1), torch.stack(c, 1)
+        c_prev, c = _subchunk_cumdecay(l2[:, t0:t0 + SUB])   # c_{t-1}, c_t
         c_tau = c[:, -1:]
         o = _mm_3xtf32(qs * torch.exp2(c_prev), s_state)
         o = o + _mm_3xtf32(_subchunk_score(qs, ks, uf, c, c_prev), vs)
@@ -567,6 +576,138 @@ def wkv6_bwd_ref(
         g = (w[:, step, :, None] * g
              + qf[:, step, :, None] * dof[:, step, None, :])
     return dq, dk, dv, dlw, du
+
+
+def _subchunk_dq(a, k, c, c_prev):
+    """K3b's intra-sub-chunk part of dq without the bonus, [BH, SUB, D]:
+    Σ_{s<t} a[t,s] k_s ⊙ 2^(c_{t-1} - c_s), with a[t,s] = do_t·v_s.
+    Each decay is split as ``_subchunk_score`` splits it, at the last step
+    r of s's 4-step block when t lies in a later block (k_s ⊙ 2^(c_r -
+    c_s) summed over the block, then scaled by 2^(c_{t-1} - c_r)), else at
+    the block's second step m; s = t - 1 takes no decay."""
+    out = torch.zeros_like(k)
+    for tb in range(SUB // 4):
+        t = slice(4 * tb, 4 * tb + 4)
+        for sb in range(tb):
+            r, s = 4 * sb + 3, slice(4 * sb, 4 * sb + 4)
+            kk = k[:, s] * torch.exp2(c[:, r:r + 1] - c[:, s])
+            out[:, t] += (torch.exp2(c_prev[:, t] - c[:, r:r + 1])
+                          * (a[:, t, s] @ kk))
+        m, hi, lo = 4 * tb + 1, slice(4 * tb + 2, 4 * tb + 4), slice(4 * tb, 4 * tb + 2)
+        k2 = k[:, lo] * torch.exp2(c[:, m:m + 1] - c[:, lo])
+        out[:, hi] += torch.exp2(c_prev[:, hi] - c[:, m:m + 1]) * (a[:, hi, lo] @ k2)
+        for i in (4 * tb + 1, 4 * tb + 3):
+            out[:, i] += a[:, i, i - 1, None] * k[:, i - 1]
+    return out
+
+
+def _subchunk_dk(a, q, c, c_prev):
+    """K3b's intra-sub-chunk part of dk without the bonus, [BH, SUB, D]:
+    Σ_{t>s} a[t,s] q_t ⊙ 2^(c_{t-1} - c_s), split as ``_subchunk_dq``
+    splits it: q_t ⊙ 2^(c_{t-1} - c_r) summed over the later blocks, then
+    scaled by 2^(c_r - c_s); within a block at m; t = s + 1 takes no
+    decay."""
+    out = torch.zeros_like(q)
+    for sb in range(SUB // 4):
+        r, s = 4 * sb + 3, slice(4 * sb, 4 * sb + 4)
+        y = torch.zeros_like(q[:, s])
+        for tb in range(sb + 1, SUB // 4):
+            t = slice(4 * tb, 4 * tb + 4)
+            qq = q[:, t] * torch.exp2(c_prev[:, t] - c[:, r:r + 1])
+            y = y + a[:, t, s].transpose(1, 2) @ qq
+        out[:, s] += torch.exp2(c[:, r:r + 1] - c[:, s]) * y
+        m, hi, lo = 4 * sb + 1, slice(4 * sb + 2, 4 * sb + 4), slice(4 * sb, 4 * sb + 2)
+        q2 = q[:, hi] * torch.exp2(c_prev[:, hi] - c[:, m:m + 1])
+        out[:, lo] += (torch.exp2(c[:, m:m + 1] - c[:, lo])
+                       * (a[:, hi, lo].transpose(1, 2) @ q2))
+        for i in (4 * sb, 4 * sb + 2):
+            out[:, i] += a[:, i + 1, i, None] * q[:, i + 1]
+    return out
+
+
+def wkv6_bwd_subchunk_ref(
+    q: torch.Tensor,     # [BH, T, D]
+    k: torch.Tensor,     # [BH, T, D]
+    v: torch.Tensor,     # [BH, T, D]
+    lw: torch.Tensor,    # [BH, T, D] log-decay (<= 0)
+    u: torch.Tensor,     # [BH, D]
+    do: torch.Tensor,    # [BH, T, D] the gradient of the output o
+):
+    """K3b's own arithmetic in plain PyTorch: the gradient of
+    ``wkv6_bwd_ref``, walked in sub-chunks of ``SUB`` steps with local
+    cumulative log-decays c in log2 units as ``wkv6_subchunk_ref`` walks
+    K3 (every exponent <= 0).  With S_0 the state at a sub-chunk's start
+    and G the state's gradient at its end, a[t,s] = do_t·v_s (s <= t, in
+    float32), vdo_t = a[t,t]:
+
+      forward:  dq = 2^c_{t-1} ⊙ (do S_0ᵀ) + intra_q + u ⊙ k vdo
+                S <- diag(2^c_τ) S_0 + k̂ᵀ v,   k̂_s = k_s ⊙ 2^(c_τ - c_s)
+      reverse:  dk = 2^(c_τ - c_s) ⊙ (v Gᵀ) + intra_k + u ⊙ q vdo
+                dv = k̂ G + scoreᵀ do      (K3's score, ``_subchunk_score``)
+                G <- diag(2^c_τ) G + q̂ᵀ do,    q̂_t = q_t ⊙ 2^c_{t-1}
+
+    with the intra terms of ``_subchunk_dq`` and ``_subchunk_dk``.  The
+    D² products and scoreᵀ·do are split into TF32 parts as the kernel's
+    tensor cores take them (``_mm_3xtf32``).  p (dq's part without the
+    bonus, times q) and r (dk's, times k) give dlw_t = (dlw_{t+1} +
+    p_{t+1}) - r_t, one running sum from the end, and du = Σ_t q_t ⊙ k_t
+    vdo_t in step order, as in ``wkv6_bwd_ref``.  Sums of products run in
+    another order than the kernel's, PyTorch rounds them to nearest where
+    the tensor cores truncate, and ``torch.exp2`` is tighter than the
+    kernel's ``ex2.approx``.  Steps past T are zeros (lw = 0).  -> (dq, dk,
+    dv, dlw [BH, T, D], du [BH, D]), float32."""
+    bh, t, d = q.shape
+    pad = (-t) % SUB
+    qf, kf, vf, lf, dof = (F.pad(a.float(), (0, 0, 0, pad))
+                           for a in (q, k, v, lw, do))
+    l2 = lf * LOG2E                                      # rounded to float32
+    uf = u.float()
+    n = t + pad
+    tril = torch.ones(SUB, SUB, dtype=torch.bool, device=q.device).tril()
+    dq, dk, dv, p, r = (torch.zeros_like(qf) for _ in range(5))
+    du = torch.zeros((bh, d), dtype=torch.float32, device=q.device)
+    state = torch.zeros((bh, d, d), dtype=torch.float32, device=q.device)
+
+    def chunk(t0):
+        x = [a[:, t0:t0 + SUB] for a in (qf, kf, vf, dof)]
+        c_prev, c = _subchunk_cumdecay(l2[:, t0:t0 + SUB])
+        a = torch.where(tril, x[3] @ x[2].transpose(1, 2), 0.0)
+        return (*x, c_prev, c, a, torch.diagonal(a, dim1=1, dim2=2)[..., None])
+
+    for t0 in range(0, n, SUB):                          # forward scan
+        qs, ks, vs, dos, c_prev, c, a, vdo = chunk(t0)
+        c_tau = c[:, -1:]
+        cross = _mm_3xtf32(dos, state.transpose(1, 2)) * torch.exp2(c_prev)
+        nb = cross + _subchunk_dq(a, ks, c, c_prev)
+        dq[:, t0:t0 + SUB] = nb + uf[:, None] * ks * vdo
+        p[:, t0:t0 + SUB] = qs * nb
+        for i in range(SUB):
+            du = du + qs[:, i] * ks[:, i] * vdo[:, i]
+        k_hat = ks * torch.exp2(c_tau - c)
+        state = (torch.exp2(c_tau).transpose(1, 2) * state
+                 + _mm_3xtf32(k_hat.transpose(1, 2), vs))
+    state = torch.zeros_like(state)                      # G at the end
+    for t0 in range(n - SUB, -1, -SUB):                  # reverse scan
+        qs, ks, vs, dos, c_prev, c, a, vdo = chunk(t0)
+        c_tau = c[:, -1:]
+        decay = torch.exp2(c_tau - c)
+        nb = (_mm_3xtf32(vs, state.transpose(1, 2)) * decay
+              + _subchunk_dk(a, qs, c, c_prev))
+        dk[:, t0:t0 + SUB] = nb + uf[:, None] * qs * vdo
+        r[:, t0:t0 + SUB] = ks * nb
+        score = _subchunk_score(qs, ks, uf, c, c_prev)
+        dv[:, t0:t0 + SUB] = (_mm_3xtf32(ks * decay, state)
+                              + _mm_3xtf32(score.transpose(1, 2), dos))
+        state = (torch.exp2(c_tau).transpose(1, 2) * state
+                 + _mm_3xtf32((qs * torch.exp2(c_prev)).transpose(1, 2), dos))
+    dlw = torch.empty_like(qf)
+    run = torch.zeros((bh, d), dtype=torch.float32, device=q.device)
+    p_next = torch.zeros_like(run)
+    for i in range(n - 1, -1, -1):
+        run = (run + p_next) - r[:, i]
+        dlw[:, i] = run
+        p_next = p[:, i]
+    return (dq[:, :t], dk[:, :t], dv[:, :t], dlw[:, :t], du)
 
 
 def wkv6_inputs(g: torch.Generator, bh: int, t: int, d: int, device,

@@ -13,10 +13,12 @@ repeats.  K3s (``wkv6_state_cuda``) is the same C entry with a state in and
 the final state out, for the RWKV-6 decode: it replaces the reference's
 ``_wkv_with_state`` (``repro.models.layers.rwkv6``), which reaches no Pallas
 kernel.  K3b (``wkv6_bwd_cuda``) computes the gradient that the reference
-takes with ``jax.grad`` of its plain recurrence (``ref.wkv6_bwd_ref`` is
-its plain version), and :class:`WKV6` is the autograd function around K3
-(forward) and K3b (backward).  Each has its own launch count.  K3 and K3s
-take any T and any alignment, so nothing is padded.  Each source is
+takes with ``jax.grad`` of its plain recurrence, in K3's sub-chunks on the
+tensor cores (``ref.wkv6_bwd_subchunk_ref`` repeats its arithmetic,
+``ref.wkv6_bwd_ref`` is the gradient step by step), and :class:`WKV6` is
+the autograd function around K3 (forward) and K3b (backward).  Each has
+its own launch count.  K3 and K3s take any T and any alignment, so nothing
+is padded.  Each source is
 compiled on first use (``build.build_library``) and called through
 ``ctypes`` on PyTorch's current stream.
 """

@@ -33,13 +33,15 @@ tensors), then times K3s at the decode geometry and at T 2048 with a state,
 each beside the plain version and the byte bound.
 
 ``--backward`` runs :func:`check_bwd`, ``chip_smoke.py`` phase 20: K3b
-against ``ref.wkv6_bwd_ref`` at rwkv6-7b's training geometry (BH 4 rows x
-64 heads, T 512, D 64, its decays) and on ragged shapes (T in ``BWD_T``, D
-in ``BWD_D``), a bit-for-bit repeat, the float64 guard at T 512 and 2048,
-and K3 at the training geometry; then times K3b and K3 there beside their
-plain versions and bounds.  Each ``--against`` source is a K3b with the
-same C entry ``wkv6_backward``: it is checked against the plain version
-and timed in turns with this checkout's.  Needs a CUDA device.
+against its plain version ``ref.wkv6_bwd_subchunk_ref`` (K3b's own
+sub-chunk arithmetic) at rwkv6-7b's training geometry (BH 4 rows x 64
+heads, T 512, D 64, its decays) and on ragged shapes (T in ``BWD_T``, D in
+``BWD_D``), a bit-for-bit repeat, the float64 guard at T 512 and 2048
+against the step-order plain version ``ref.wkv6_bwd_ref``, and K3 at the
+training geometry; then times K3b and K3 there beside their plain versions
+and bounds.  Each ``--against`` source is a K3b with the same C entry
+``wkv6_backward``: it is checked against the plain version and timed in
+turns with this checkout's.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ from ..kernels.build import build_library
 from ..kernels.wkv6_chunk import (bind, bind_bwd, build, build_bwd,
                                   wkv6_bwd_cuda, wkv6_cuda, wkv6_state_cuda)
 from .profile_forward import BATCH, ROOT, SEQ
-from .time_k1b import max_err
+from .time_k1b import H100_TF32_FLOPS, TF32_PASSES, max_err
 from .time_k4 import H100_BYTES_PER_S, H100_F32_FLOPS, cuda_ms
 
 HEADS, HEAD_DIM = 64, 64
@@ -287,17 +289,22 @@ def describe_state(r: dict) -> str:
 
 
 def k3b_bound(bh: int, t: int, d: int):
-    """(ms, "bytes" or "operations", bytes, operations) of K3b: q, k, v,
-    lw, dO read once and dq, dk, dv, dlw written once, f32 [BH, T, D], u
-    read and du written once [BH, D]; a step and row 12·D² + 24·D
-    operations (the forward scan's S·dO and state update, 5·D²; the reverse
-    scan's G·v, Gᵀ·k and G's update, 7·D²; the bonus terms, the decays,
-    v·dO, Σ u q k, du and dlw's running sum, 24·D)."""
+    """(ms, "bytes" or "operations", bytes, operations, FFMA ms) of K3b:
+    q, k, v, lw, dO read once and dq, dk, dv, dlw written once, f32 [BH,
+    T, D], u read and du written once [BH, D]; a step and row 12·D² + 24·D
+    operations, the function's own (the forward scan's S·dO and state
+    update, 5·D²; the reverse scan's G·v, Gᵀ·k and G's update, 7·D²; the
+    bonus terms, the decays, v·dO, Σ u q k, du and dlw's running sum,
+    24·D), not the sub-chunk form's extra work within a sub-chunk.  The
+    operations run on the tensor cores in 3xTF32, three TF32 products for
+    each f32 one; the FFMA figure is the same operations at the f32 rate
+    outside the tensor cores."""
     nbytes = (9 * bh * t * d + 2 * bh * d) * 4
     flops = (12 * d * d + 24 * d) * t * bh
-    t_b, t_o = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    t_b = nbytes / H100_BYTES_PER_S
+    t_o = TF32_PASSES * flops / H100_TF32_FLOPS
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
-            nbytes, flops)
+            nbytes, flops, flops / H100_F32_FLOPS * 1e3)
 
 
 def k3_bound(bh: int, t: int, d: int, itemsize: int = 4):
@@ -339,14 +346,16 @@ def _bwd_errors(label: str, got, expect) -> float:
 
 
 def check_bwd(device, libs: dict = None) -> dict:
-    """K3b against its plain version on the card (``chip_smoke.py`` phase
-    20); raises ``AssertionError`` on a failed check.  ``libs`` ({name: a
-    bound K3b library}) are checked and timed beside this checkout's K3b.
-    The launch counts of ``wkv6_cuda`` and ``wkv6_bwd_cuda`` are restored
-    before it returns.  -> {"lines", "err": K3b's largest error at the
-    training geometry, "k3_err", "guard": {T: {output: (K3b's, the f32
-    plain version's error from float64)}}, "k3b" and "k3": {"shape", "ms",
-    "plain_ms", "bound"}, "against": {name: {"err", "ms"}}}."""
+    """K3b against its plain version ``ref.wkv6_bwd_subchunk_ref`` on the
+    card (``chip_smoke.py`` phase 20); raises ``AssertionError`` on a
+    failed check.  ``libs`` ({name: a bound K3b library}) are checked and
+    timed beside this checkout's K3b.  The launch counts of ``wkv6_cuda``
+    and ``wkv6_bwd_cuda`` are restored before it returns.  -> {"lines",
+    "err": K3b's largest error at the training geometry, "k3_err",
+    "guard": {T: {output: (K3b's, the f32 step-order plain version's error
+    from float64)}}, "k3b" and "k3": {"shape", "ms", "plain_ms", "bound"}
+    (K3b's also "step_ms", the step-order plain version's time),
+    "against": {name: {"err", "ms"}}}."""
     counts = wkv6_cuda.launches, wkv6_bwd_cuda.launches
     libs = libs or {}
     g = torch.Generator(device=device)
@@ -357,7 +366,7 @@ def check_bwd(device, libs: dict = None) -> dict:
     x = bwd_inputs(g, *geom, device)
     got = wkv6_bwd_cuda(*x)
     torch.cuda.synchronize()
-    plain = ref.wkv6_bwd_ref(*x)
+    plain = ref.wkv6_bwd_subchunk_ref(*x)
     out["err"] = _bwd_errors(f"K3b {geom}", got, plain)
     again = wkv6_bwd_cuda(*x)
     assert all(torch.equal(a, b) for a, b in zip(got, again)), \
@@ -366,9 +375,9 @@ def check_bwd(device, libs: dict = None) -> dict:
         out["against"][name] = {"err": _bwd_errors(
             f"K3b {name} {geom}", _launch_bwd(lib, *x), plain)}
     lines.append(f"K3b {geom} f32, rwkv6-7b's decays: max abs err "
-                 f"{out['err']:.3e} against the plain version (rtol 1e-4, "
-                 f"atol 1e-5 of each output's largest magnitude); two calls "
-                 f"equal bit for bit")
+                 f"{out['err']:.3e} against the plain version (its sub-chunk "
+                 f"arithmetic; rtol 1e-4, atol 1e-5 of each output's largest "
+                 f"magnitude); two calls equal bit for bit")
     del got, again, plain
 
     for d in BWD_D:
@@ -376,7 +385,7 @@ def check_bwd(device, libs: dict = None) -> dict:
         for t in BWD_T:
             xs = bwd_inputs(g, 3, t, d, device)
             errs.append(_bwd_errors(f"K3b (3, {t}, {d})", wkv6_bwd_cuda(*xs),
-                                    ref.wkv6_bwd_ref(*xs)))
+                                    ref.wkv6_bwd_subchunk_ref(*xs)))
         lines.append(f"K3b (3, T, {d}), T in {BWD_T}: max abs err "
                      f"{max(errs):.3e}")
 
@@ -400,8 +409,8 @@ def check_bwd(device, libs: dict = None) -> dict:
             f"float64 guard at ({geom[0]}, {t}, {HEAD_DIM}): "
             + ", ".join(f"{n} {e:.2e} vs {p:.2e}"
                         for n, (e, p) in guard.items())
-            + " (K3b's error from float64 vs the f32 plain version's; at "
-              "most 2x)")
+            + " (K3b's error from float64 vs the f32 step-order plain "
+              "version's; at most 2x)")
 
     q, k, v, lw, u, do = x
     k3 = ops.wkv6(q, k, v, lw, u)
@@ -410,7 +419,8 @@ def check_bwd(device, libs: dict = None) -> dict:
     lines.append(f"K3 {geom} f32: max abs err {out['k3_err']:.3e} against "
                  f"its plain version (rtol = atol = {TOL})")
     out["k3b"] = {"shape": geom, "ms": cuda_ms(lambda: wkv6_bwd_cuda(*x), 20),
-                  "plain_ms": cuda_ms(lambda: ref.wkv6_bwd_ref(*x), 1),
+                  "plain_ms": cuda_ms(lambda: ref.wkv6_bwd_subchunk_ref(*x), 2),
+                  "step_ms": cuda_ms(lambda: ref.wkv6_bwd_ref(*x), 1),
                   "bound": k3b_bound(*geom)}
     out["k3"] = {"shape": geom, "ms": cuda_ms(lambda: ops.wkv6(*x[:5]), 20),
                  "plain_ms": cuda_ms(lambda: ref.wkv6_chunk_ref(
@@ -435,15 +445,20 @@ def check_bwd(device, libs: dict = None) -> dict:
 
 def describe_bwd(r: dict) -> str:
     """What :func:`check_bwd` found, one item a line."""
-    timed = []
-    for key, name in (("k3b", "K3b"), ("k3", "K3")):
-        m = r[key]
-        ms, by, nbytes, flops = m["bound"]
-        timed.append(
-            f"{name} {tuple(m['shape'])} f32, rwkv6-7b's decays: "
-            f"{m['ms']:.4f} ms, plain version {m['plain_ms']:.4f} ms, bound "
-            f"{ms:.4f} ms ({by}: {nbytes / 1e6:.0f} MB, "
-            f"{flops / 1e9:.2f} GFLOP; {ms / m['ms']:.1%} reached)")
+    m = r["k3b"]
+    ms, by, nbytes, flops, ffma_ms = m["bound"]
+    timed = [f"K3b {tuple(m['shape'])} f32, rwkv6-7b's decays: "
+             f"{m['ms']:.4f} ms, plain version {m['plain_ms']:.4f} ms (step "
+             f"order {m['step_ms']:.4f} ms), bound {ms:.4f} ms ({by}: "
+             f"{nbytes / 1e6:.0f} MB, {flops / 1e9:.2f} GFLOP as 3xTF32 at "
+             f"495 TFLOP/s; {ms / m['ms']:.1%} reached; FFMA figure "
+             f"{ffma_ms:.4f} ms)"]
+    m = r["k3"]
+    ms, by, nbytes, flops = m["bound"]
+    timed.append(f"K3 {tuple(m['shape'])} f32, rwkv6-7b's decays: "
+                 f"{m['ms']:.4f} ms, plain version {m['plain_ms']:.4f} ms, "
+                 f"bound {ms:.4f} ms ({by}: {nbytes / 1e6:.0f} MB, "
+                 f"{flops / 1e9:.2f} GFLOP; {ms / m['ms']:.1%} reached)")
     for name, a in r["against"].items():
         timed.append(f"K3b {name}: "
                      + (f"max abs err {a['err']:.3e}, " if "err" in a else "")

@@ -921,21 +921,38 @@ def _k3b_case(bh, t, d, seed=0):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bh,t,d", K3B_CASES)
 def test_cuda_k3b_matches_plain_version(bh, t, d):
-    """K3b against ``ref.wkv6_bwd_ref`` on the card over phase 20's shapes
-    (T on both sides of 16 and up to 2048, D 32-128, and the training
-    geometry): each output within rtol 1e-4 and an atol of 1e-5 of its
-    largest magnitude (``time_k1b.max_err``: the kernel fuses what the
-    plain version rounds twice); two calls equal bit for bit."""
+    """K3b against its plain version ``ref.wkv6_bwd_subchunk_ref`` (its own
+    sub-chunk arithmetic) on the card over phase 20's shapes (T on both
+    sides of 16 and up to 2048, D 32-128, and the training geometry): each
+    output within rtol 1e-4 and an atol of 1e-5 of its largest magnitude
+    (``time_k1b.max_err``: the kernel's sums run in another order, and its
+    tensor cores truncate); two calls equal bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (K3b is a CUDA kernel)")
     x = _k3b_case(bh, t, d)
     got = wkv6_bwd_cuda(*x)
     torch.cuda.synchronize()
-    for name, a, b in zip(time_k3.BWD_OUTPUTS, got, ref.wkv6_bwd_ref(*x)):
+    for name, a, b in zip(time_k3.BWD_OUTPUTS, got,
+                          ref.wkv6_bwd_subchunk_ref(*x)):
         assert a.dtype == torch.float32
         time_k1b.max_err(f"K3b ({bh}, {t}, {d}) {name}", a, b)
     again = wkv6_bwd_cuda(*x)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,t,d", K3B_CASES)
+def test_cuda_k3b_matches_step_order_plain_version(bh, t, d):
+    """K3b against the step-order plain version ``ref.wkv6_bwd_ref`` (one
+    step after the other, as the reference's autograd walks the
+    recurrence) at the same tolerance, over the same shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K3b is a CUDA kernel)")
+    x = _k3b_case(bh, t, d, seed=1)
+    got = wkv6_bwd_cuda(*x)
+    torch.cuda.synchronize()
+    for name, a, b in zip(time_k3.BWD_OUTPUTS, got, ref.wkv6_bwd_ref(*x)):
+        time_k1b.max_err(f"K3b ({bh}, {t}, {d}) {name}", a, b)
 
 
 @pytest.mark.gpu
@@ -958,8 +975,9 @@ def test_cuda_k3b_checks_of_chip_smoke():
 def test_cuda_wkv6_autograd_is_k3b():
     """On the card the gradient of ``ops.wkv6`` is K3b (through
     ``WKV6``): one K3 and one K3b launch, the gradients K3b's own and
-    within ``max_err`` of the plain version; no gradient asked, no graph;
-    the state path refuses a gradient, and a bf16 backward raises."""
+    within ``max_err`` of its plain version ``ref.wkv6_bwd_subchunk_ref``;
+    no gradient asked, no graph; the state path refuses a gradient, and a
+    bf16 backward raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (K3 and K3b are CUDA kernels)")
     x = _k3b_case(3, 37, 64, seed=5)
@@ -970,7 +988,7 @@ def test_cuda_wkv6_autograd_is_k3b():
             wkv6_bwd_cuda.launches - before[1]) == (1, 1)
     direct = wkv6_bwd_cuda(*x)
     for name, a, b, c in zip(time_k3.BWD_OUTPUTS, inputs, direct,
-                             ref.wkv6_bwd_ref(*x)):
+                             ref.wkv6_bwd_subchunk_ref(*x)):
         assert torch.equal(a.grad, b), name
         time_k1b.max_err(f"autograd {name}", a.grad, c)
     with torch.no_grad():

@@ -1,10 +1,12 @@
-"""K3b's plain version (``ref.wkv6_bwd_ref``: the gradient of the RWKV-6
-recurrence from a zero state, in K3b's order of sums) and the gradient
-route of ``ops.wkv6`` against the JAX reference, which trains with
-``jax.grad`` of its plain recurrence: the same numpy inputs, made from a
-seed, go through ``jax.vjp`` of ``repro.kernels.ops.wkv6(...,
-impl="ref")`` and through the port.  K3b itself is a CUDA kernel and runs
-only on the card (``chip_smoke.py`` phase 20, ``test_torch_gpu.py``)."""
+"""K3b's plain versions and the gradient route of ``ops.wkv6`` against the
+JAX reference, which trains with ``jax.grad`` of its plain recurrence: the
+same numpy inputs, made from a seed, go through ``jax.vjp`` of
+``repro.kernels.ops.wkv6(..., impl="ref")`` and through the port.
+``ref.wkv6_bwd_subchunk_ref`` repeats K3b's own arithmetic (sub-chunks of
+16 steps, decays split into factors <= 1, 3xTF32 products);
+``ref.wkv6_bwd_ref`` is the gradient step by step, and in float64 the
+guard's evaluation.  K3b itself is a CUDA kernel and runs only on the card
+(``chip_smoke.py`` phase 20, ``test_torch_gpu.py``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -57,6 +59,50 @@ def test_plain_wkv6_bwd_matches_reference_vjp(bh, t, d, model_decay):
         assert a.dtype == torch.float32 and a.shape == b.shape, name
         np.testing.assert_allclose(a.numpy(), b, rtol=1e-4,
                                    atol=1e-5 * np.abs(b).max(), err_msg=name)
+
+
+def _worst_share(got, expect) -> float:
+    """The largest share over the outputs of the allowance |got - expect|
+    <= 1e-4·|expect| + 1e-5·max|expect| that ``got`` uses."""
+    return max(float((np.abs(a.numpy() - b)
+                      / (1e-4 * np.abs(b) + 1e-5 * np.abs(b).max())).max())
+               for a, b in zip(got, expect))
+
+
+SUBCHUNK_CASES = [  # the file's shapes with both decay sets; T 512, D 64 as trained
+    pytest.param(*shape, model_decay, id="-".join(map(str, shape)) + f"-{name}")
+    for shape in SHAPES
+    for model_decay, name in ((True, "rwkv6-decays"), (False, "test-decays"))
+] + [pytest.param(1, 512, 64, True, id="training-T512-rwkv6-decays")]
+
+
+@pytest.mark.parametrize("bh,t,d,model_decay", SUBCHUNK_CASES)
+def test_subchunk_wkv6_bwd_matches_reference_vjp(bh, t, d, model_decay):
+    """K3b's sub-chunk arithmetic against the reference's gradient, at the
+    tolerance of the step-order plain version above, on T below, at and
+    past one sub-chunk and at the training geometry's T 512, D 64."""
+    x = _case(bh * 1000 + t * 10 + d, bh, t, d, model_decay)
+    expect = _jax_vjp(*x)
+    got = tref.wkv6_bwd_subchunk_ref(*(torch.tensor(a) for a in x))
+    for name, a, b in zip(OUTPUTS, got, expect):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-4,
+                                   atol=1e-5 * np.abs(b).max(), err_msg=name)
+
+
+def test_single_tf32_pass_misses_the_k3b_check(monkeypatch):
+    """Why K3b splits its products: with one TF32 pass (operands rounded to
+    10 mantissa bits) its sub-chunk arithmetic at rwkv6-7b's decays and T
+    512 misses the check above, |got - vjp| <= 1e-4·|vjp| + 1e-5·max|vjp|,
+    by more than 10x somewhere; 3xTF32 passes it on the same inputs."""
+    x = _case(5, 1, 512, 64)
+    expect = _jax_vjp(*x)
+    inputs = [torch.tensor(a) for a in x]
+    split = _worst_share(tref.wkv6_bwd_subchunk_ref(*inputs), expect)
+    monkeypatch.setattr(tref, "_mm_3xtf32",
+                        lambda a, b: tref._tf32(a) @ tref._tf32(b))
+    single = _worst_share(tref.wkv6_bwd_subchunk_ref(*inputs), expect)
+    assert split < 1 < single / 10, (split, single)
 
 
 @pytest.mark.parametrize("bh,t,d", SHAPES)
