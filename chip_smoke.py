@@ -73,8 +73,9 @@ Phases, in order; any failure raises and exits nonzero:
  10. K4 (the MicroEP scheduler, entry point ``ops.schedule``) against its
      plain version on the cases of ``launch/time_k4.py``: the olmoe-1b-7b
      decode geometry (E 64, G 1, R 1, counts of 4 tokens routed top-8),
-     the paper's group (E 64 on 4 x 4 devices, 2-3 replicas an expert on
-     a seeded placement) and greedy sequencing (E 16 on 2 x 4); three
+     paper-mixtral-16x2b's (E 32 virtual experts, G 1, R 1), the paper's
+     group (E 64 on 4 x 4 devices, 2-3 replicas an expert on a seeded
+     placement) and greedy sequencing (E 16 on 2 x 4); three
      micro-batches with the warm start carried and three cold ones;
      x_int, flow and max_load equal, x within 1e-5, balance within 1e-6.
      Times K4 (mean of 20 launches queued behind a spin kernel, and paced

@@ -22,13 +22,14 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .build import CSRC, build_library
 
-__all__ = ["bind", "build", "check_sizes", "schedule_cuda", "MAX_EXPERTS",
-           "MAX_DEVICES", "MAX_REPLICAS", "SEQUENCING", "SOLVER_MODES",
-           "MODES"]
+__all__ = ["bind", "build", "check_sizes", "launch", "schedule_cuda",
+           "step_levels", "MAX_EXPERTS", "MAX_DEVICES", "MAX_REPLICAS",
+           "SEQUENCING", "SOLVER_MODES", "MODES"]
 
 _SRC = CSRC / "microep_sched.cu"
 MAX_EXPERTS, MAX_DEVICES, MAX_REPLICAS = 256, 64, 32
@@ -70,6 +71,24 @@ def check_sizes(num_experts: int, num_devices: int, num_replicas: int):
                          ("replicas per expert", num_replicas, MAX_REPLICAS)):
         if not 1 <= n <= top:
             raise ValueError(f"K4 takes 1 to {top} {name}, got {n}")
+
+
+def step_levels(dev, sweeps: int) -> np.ndarray:
+    """int [sweeps, E]: the level of each Gauss-Seidel step (sweep s, expert
+    e) in K4's dataflow, 1 + the level of the last earlier step that touched
+    one of e's devices (1 where there is none).  A step reads only its
+    devices' loads and its own row of the iterate, so the steps of a level
+    can run at once; the largest level is the critical path (E x sweeps at
+    one device).  ``dev``: int [E, R] replica -> device, -1 padding."""
+    dev = np.asarray(dev)
+    last = np.zeros(int(dev.max(initial=-1)) + 1, np.int64)
+    out = np.empty((sweeps, dev.shape[0]), np.int64)
+    for s in range(sweeps):
+        for e, row in enumerate(dev):
+            devs = row[row >= 0]
+            out[s, e] = 1 + (last[devs].max() if devs.size else 0)
+            last[devs] = out[s, e]
+    return out
 
 
 def _check_option(what: str, value, options) -> None:
@@ -145,7 +164,25 @@ def schedule_cuda(
     if batch < 1:
         raise ValueError(f"K4 needs at least one instance, got leading "
                          f"dims {lead}")
-    lib = _load()
+    out = launch(_load(), input_eg, dev, num_devices, x_init, sequencing,
+                 sweeps, solver_mode=solver_mode, weights=weights, caps=caps,
+                 mode=mode, locality=locality, cols=cols)
+    schedule_cuda.launches += 1
+    return out
+
+
+schedule_cuda.launches = 0   # kernel launches since the last reset
+
+
+def launch(lib, input_eg, dev, num_devices, x_init, sequencing, sweeps, *,
+           solver_mode="scan", weights=None, caps=None, mode="microep",
+           locality=True, cols=1):
+    """One launch of a bound K4 library's ``microep_schedule`` (``bind``) on
+    arguments :func:`schedule_cuda` takes and has checked; counts nothing.
+    -> (x, x_int, flow, max_load, balance)."""
+    n_e, n_r = dev.shape
+    lead = tuple(input_eg.shape[:-2])
+    batch = input_eg.numel() // (n_e * num_devices)
     device = input_eg.device
     x = torch.empty(lead + (n_e, n_r), dtype=torch.float32, device=device)
     x_int = torch.empty(lead + (n_e, n_r), dtype=torch.int64, device=device)
@@ -164,8 +201,4 @@ def schedule_cuda(
         int(bool(locality)), cols, stream)
     if rc != 0:
         raise RuntimeError(f"K4 launch failed: CUDA error {rc}")
-    schedule_cuda.launches += 1
     return x, x_int, flow, stats[..., 0], stats[..., 1]
-
-
-schedule_cuda.launches = 0   # kernel launches since the last reset

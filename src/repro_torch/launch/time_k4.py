@@ -2,7 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.time_k4 [--solver-mode
       batched] [--mode vanilla] [--no-locality] [--profiles 2,1]
-      [--mem-caps 1.05] [--scheduler-core]
+      [--mem-caps 1.05] [--scheduler-core] [--against OTHER.cu ...]
+      [--phases]
 
 For every case of ``CASES`` (a placement and token counts drawn with numpy
 from a seed), ``measure`` runs K4 and its plain version
@@ -14,7 +15,9 @@ time over ``REPS`` launches queued behind a spin kernel, so that the
 wrapper's host work does not pace them, and its time paced by that host
 work; the plain version, a chain of small launches, over 3 calls.  Prints
 the times beside the bound (bytes ÷ 3.35 TB/s against operations ÷ 67
-TFLOP/s) and the card.  ``chip_smoke.py`` phase 10 runs the same cases.
+TFLOP/s), each case's Gauss-Seidel steps and critical path
+(``sched.step_levels``) and the time a level of the chain takes, and the
+card.  ``chip_smoke.py`` phase 10 runs the same cases.
 The flags run the cases with K4's other options: the damped-Jacobi solver
 (2 × the sweeps, as the scheduler runs it), the vanilla mode, routing
 without its local phase, device weights (a profile list cycled over the
@@ -26,32 +29,53 @@ core through ``MicroEPEngine.build(...).schedule`` on the card, each
 schedule equal bit for bit to the CPU's plain version: Fig. 7's group
 (``fig7``: every placement, vanilla mode, the five baselines and HiGHS's
 optimum), olmoe-1b-7b's experts on a 4 × 4 latin group in every option
-(``olmoe_group``) and Fig. 9's grid of K4 times (``fig9``).  Needs a CUDA
-device.
+(``olmoe_group``) and Fig. 9's grid of K4 times (``fig9``).
+
+``--against OTHER.cu`` builds another K4 source with the same C entry
+(for example ``git show <commit>:src/repro_torch/csrc/microep_sched.cu``
+saved under the git-ignored ``build/``), checks that it gives this
+checkout's outputs bit for bit, and times the two in turns (this, other,
+other, this) on every case, with the flags' options, and on Fig. 9's grid
+with both solvers, cold and warm, and with no sweep.  ``--phases`` splits
+K4's time by phase: a probe copy of each source under ``build/k4_phases/``
+takes a block barrier and a ``clock64()`` stamp of block 0 at each
+``// ---- `` phase marker and at the kernel's end (the committed source
+has no stamp), and the median of 9 launches gives each phase's share of
+the cycles.  Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
+import pathlib
+import re
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from ..core.placement import Placement
+from ..core.placement import Placement, latin_placement
 from ..core.scheduler import SWEEPS, SchedStatics
-from ..kernels import ops, ref
+from ..kernels import ops, ref, sched
+from ..kernels.build import build_library
 
 REPS = 20
 TOL_X, TOL_BALANCE = 1e-5, 1e-6
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12         # f32 outside the tensor cores
 
-# name: (experts, (rows, cols), slots a device, sequencing,
-#        (tokens a device, top-k, popularity skew))
+# name: (experts, (rows, cols), slots a device or "latin", sequencing,
+#        (tokens a device, top-k, popularity skew) or one count for every
+#        (expert, source))
 CASES = {
     # olmoe-1b-7b's decode step: one device, 4 tokens routed top-8
     "olmoe-decode": (64, (1, 1), 64, "proportional", (4, 8, 0.0)),
+    # paper-mixtral-16x2b's decode step (etp 2): 32 virtual experts on one
+    # device, 4 tokens of 4 rows each (top-2 x 2 halves), drawn as 4
+    # distinct virtual experts a token
+    "mixtral-decode": (32, (1, 1), 32, "proportional", (4, 4, 0.0)),
     # the paper's group: 16 devices, 64 experts, 2 or 3 replicas each
     "paper-g16": (64, (4, 4), 10, "proportional", (512, 2, 1.0)),
     "greedy-g8": (16, (2, 4), 5, "greedy", (128, 2, 1.0)),
@@ -103,15 +127,19 @@ def routed_counts(rng: np.random.Generator, num_experts: int,
 def case(spec, device, seed: int = 0):
     """-> (dev int64[E, R], num_devices, sequencing, three int64[E, G]
     micro-batches) of ``spec``, a name of ``CASES`` or a tuple in its form,
-    on ``device``."""
-    n_e, (rows, cols), slots, sequencing, (tokens, top_k, skew) = \
+    on ``device``: the latin placement (Fig. 9's) or ``replicated_
+    placement``, and routed counts or the one count everywhere."""
+    n_e, (rows, cols), slots, sequencing, counts = \
         CASES[spec] if isinstance(spec, str) else spec
     statics = SchedStatics.build(
-        replicated_placement(rows, cols, n_e, slots, seed))
+        latin_placement(rows, cols, n_e) if slots == "latin"
+        else replicated_placement(rows, cols, n_e, slots, seed))
     rng = np.random.default_rng(seed + 1)
-    batches = [torch.tensor(routed_counts(rng, n_e, statics.num_devices,
-                                          tokens, top_k, skew), device=device)
-               for _ in range(3)]
+    g = statics.num_devices
+    batches = [torch.tensor(
+        np.full((n_e, g), counts, np.int64) if np.isscalar(counts)
+        else routed_counts(rng, n_e, g, *counts), device=device)
+        for _ in range(3)]
     return (torch.tensor(statics.dev, device=device), statics.num_devices,
             sequencing, batches)
 
@@ -205,15 +233,16 @@ def cuda_ms(fn, reps: int, queued: bool = False) -> float:
 
 def time_case(dev, num_devices, sequencing, input_eg, x_init,
               options=None) -> dict:
-    """K4's device time, K4's time paced by its host work, and the plain
-    version's time (ms) on one micro-batch."""
+    """K4's device time, the same with no sweep, K4's time paced by its
+    host work, and the plain version's time (ms) on one micro-batch."""
     options = options or {}
     sweeps = sweeps_of(options)
 
-    def k4():
-        ops.schedule(input_eg, dev, num_devices, x_init, sequencing, sweeps,
+    def k4(n=sweeps):
+        ops.schedule(input_eg, dev, num_devices, x_init, sequencing, n,
                      **options)
     return {"k4": cuda_ms(k4, REPS, queued=True),
+            "k4_no_sweep": cuda_ms(lambda: k4(0), REPS, queued=True),
             "k4_paced": cuda_ms(k4, REPS),
             "plain": cuda_ms(lambda: ref.schedule_ref(
                 input_eg, dev, num_devices, x_init, sequencing, sweeps,
@@ -242,7 +271,8 @@ def measure(name: str, device, timed: bool = True,
                     f"K4 {name}, {'warm' if warm else 'cold'} micro-batch "
                     f"{i}: {exc}") from exc
     out = {"shape": (dev.shape[0], n_g, dev.shape[1]), "sequencing": seq,
-           "err": max(errs), "sweeps": sweeps_of(opts)}
+           "err": max(errs), "sweeps": sweeps_of(opts),
+           "chain": chain(dev.cpu(), opts, sweeps_of(opts))}
     if timed:
         x_warm = run_both(dev, n_g, seq, batches[:2], options=opts)[-1][0][0]
         out.update(time_case(dev, n_g, seq, batches[-1], x_warm, opts))
@@ -251,16 +281,23 @@ def measure(name: str, device, timed: bool = True,
     return out
 
 
-def chain(n_e: int, options: dict, sweeps: int) -> str:
-    """K4's dependent chain under ``options``."""
+def chain(dev, options: dict, sweeps: int) -> tuple:
+    """(water-fill steps, levels, what) of K4's dependent chain under
+    ``options``: Gauss-Seidel's steps and their critical path in K4's
+    dataflow (``sched.step_levels``), or Jacobi's sweeps, a block-wide
+    round of fills each; doubled with caps, which add 8 projection
+    passes."""
     solves = 2 if options.get("caps") is not None else 1
+    steps = solves * dev.shape[0] * sweeps
+    extra = " and 8 projection passes" if solves == 2 else ""
     if options.get("mode") == "vanilla":
-        return "no solver chain (the same-row mask)"
+        return 0, 0, "no solver chain (the same-row mask)"
     if options.get("solver_mode") == "batched":
-        return (f"{solves * sweeps} block-wide Jacobi sweeps"
-                + (" and 8 projection passes" if solves == 2 else ""))
-    return (f"{solves * n_e * sweeps} dependent water-fill steps"
-            + (" and 8 projection passes" if solves == 2 else ""))
+        return (steps, solves * sweeps,
+                f"{solves * sweeps} block-wide Jacobi sweeps{extra}")
+    levels = solves * int(sched.step_levels(dev, sweeps).max(initial=0))
+    return (steps, levels, f"{steps} Gauss-Seidel water-fills on a critical "
+            f"path of {levels} levels{extra}")
 
 
 def describe(name: str, m: dict, options=None) -> str:
@@ -272,14 +309,19 @@ def describe(name: str, m: dict, options=None) -> str:
             f"{', ' + label if label else ''}): x_int, flow, max_load equal "
             f"over 3 warm and 3 cold micro-batches, x max abs err "
             f"{m['err']:.3e} (tol {TOL_X})")
+    steps, levels, what = m["chain"]
+    line += f"; the chain is {what}"
     if "k4" in m:
         bound_ms, by, nbytes, flops = m["bound"]
         line += (f"; K4 {m['k4']:.4f} ms (mean of {REPS} queued launches; "
+                 f"{m['k4_no_sweep']:.4f} ms with no sweep; "
                  f"{m['k4_paced']:.4f} ms paced by the wrapper's host "
                  f"work), plain version {m['plain']:.4f} ms, bound "
                  f"{bound_ms:.6f} ms ({by}: {nbytes} B moved, {flops:.0f} "
-                 f"f32 operations); the chain is "
-                 f"{chain(n_e, options or {}, m['sweeps'])}")
+                 f"f32 operations)")
+        if levels:
+            line += (f"; {1e6 * (m['k4'] - m['k4_no_sweep']) / levels:.0f} "
+                     f"ns a level of the chain")
     return line
 
 
@@ -562,6 +604,207 @@ def scheduler_core() -> None:
     print(f"  scheduler core checked in {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------ other K4 sources, in turns
+
+
+def case_inputs(options, device) -> list:
+    """K4's inputs at each case of ``CASES``: (label, dev, G, sequencing,
+    the last micro-batch, the warm start after the two before, options)."""
+    out = []
+    for name in CASES:
+        dev, n_g, seq, batches = case(name, device)
+        opts = options(name, n_g, batches)
+        x = None
+        for counts in batches[:2]:
+            x = ops.schedule(counts, dev, n_g, x, seq, sweeps_of(opts),
+                             **opts)[0]
+        out.append((name, dev, n_g, seq, batches[2], x, opts))
+    return out
+
+
+def fig9_inputs(device, seed: int = 0) -> list:
+    """K4's inputs at Fig. 9's grid as ``fig9`` times them through the
+    engine (2-row latin groups, Zipf(1.0) counts of 2048 tokens a device):
+    both solvers, cold and from the first micro-batch's warm start."""
+    out = []
+    for g, e in FIG9:
+        dev = torch.tensor(SchedStatics.build(latin_placement(2, g // 2,
+                                                              e)).dev,
+                           device=device)
+        batches = [c.to(device) for c in zipf_micro_batches(
+            np.random.default_rng(seed), e, g, 2048, 1.0, 2)]
+        for solver in ("scan", "batched"):
+            opts = {} if solver == "scan" else {"solver_mode": solver}
+            x0 = ops.schedule(batches[0], dev, g, None, "proportional",
+                              sweeps_of(opts), **opts)[0]
+            for phase, x in (("cold", None), ("warm", x0)):
+                out.append((f"fig9 G {g} E {e} {solver} {phase}", dev, g,
+                            "proportional", batches[1], x, opts))
+    return out
+
+
+def turns(runs: dict) -> dict:
+    """Each of ``runs`` ({name: a launch}) timed by ``cuda_ms`` (queued),
+    in turns: in order, then in reverse.  -> {name: [ms, ms]}."""
+    times = {n: [] for n in runs}
+    for n in list(runs) + list(reversed(runs)):
+        times[n].append(cuda_ms(runs[n], REPS, queued=True))
+    return times
+
+
+def compare(libs: dict, inputs) -> list:
+    """Each bound K4 library of ``libs`` (the first is the one the others
+    are held to) on each of ``inputs`` (``case_inputs``' form): outputs
+    equal to the first's bit for bit, else ``AssertionError``; then their
+    times in turns, with the inputs' sweeps and with none.  -> rows of
+    {"label", "ms", "no_sweep_ms": {name: [ms, ms]}, "chain"}."""
+    rows = []
+    first = next(iter(libs))
+    for label, dev, n_g, seq, counts, x0, opts in inputs:
+        sweeps = sweeps_of(opts)
+
+        def run(lib, n=sweeps):
+            return sched.launch(lib, counts, dev, n_g, x0, seq, n, **opts)
+        expect = run(libs[first])
+        for name, lib in libs.items():
+            for what, a, b in zip(("x", "x_int", "flow", "max_load",
+                                   "balance"), run(lib), expect):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{label}: K4 {name}'s {what} "
+                                         f"differs from {first}'s")
+        rows.append({
+            "label": label,
+            "ms": turns({n: (lambda lib=lib: run(lib))
+                         for n, lib in libs.items()}),
+            "no_sweep_ms": turns({n: (lambda lib=lib: run(lib, 0))
+                                  for n, lib in libs.items()}),
+            "chain": chain(dev.cpu(), opts, sweeps)})
+    return rows
+
+
+def describe_turns(row: dict) -> str:
+    """One line of ``compare``'s rows."""
+    steps, levels, _ = row["chain"]
+    parts = []
+    for name, ts in row["ms"].items():
+        ms, ms0 = np.mean(ts), np.mean(row["no_sweep_ms"][name])
+        parts.append(f"{name} {ms:.4f} ms (runs "
+                     + ", ".join(f"{t:.4f}" for t in ts)
+                     + f"; no sweep {ms0:.4f}"
+                     + (f"; {1e6 * (ms - ms0) / levels:.0f} ns a level"
+                        if levels else "") + ")")
+    return (f"{row['label']} ({steps} fills, {levels} levels): "
+            + ", ".join(parts))
+
+
+# ------------------------------------------------ K4's time by phase
+
+PHASE_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
+    "k4_phases"
+_MARK = re.compile(r"^(\s*)// ---- (.*)$")
+N_STAMPS = 32
+PHASE_CASES = ("olmoe-decode", "mixtral-decode", "paper-g16",
+               "fig9 G 16 E 128 scan warm", "fig9 G 64 E 256 scan warm",
+               "fig9 G 64 E 256 batched warm")
+
+
+def stamped_source(src, tag: str, out_dir=PHASE_DIR):
+    """A probe copy ``tag``.cu of the K4 source ``src`` in ``out_dir``: before
+    each ``// ---- `` phase marker and at the kernel's end a block barrier
+    and block 0's ``clock64()`` into ``k4_stamp``, read and cleared by the
+    added C entry ``microep_stamps``.  -> (path, the stamps' labels)."""
+    def stamp(indent: str) -> str:
+        return (f"{indent}__syncthreads(); if (threadIdx.x == 0 && "
+                f"blockIdx.x == 0) k4_stamp[{len(labels)}] = clock64();")
+    lines, labels = [], []
+    for line in pathlib.Path(src).read_text().splitlines():
+        m = _MARK.match(line)
+        if m:
+            lines.append(stamp(m.group(1)))
+            labels.append(re.split(r"[(:,]", m.group(2))[0].strip())
+        lines.append(line)
+    text = "\n".join(lines) + "\n"
+    end = text.rindex("\n}\n", 0, text.index("cudaError_t launch("))
+    text = text[:end] + "\n" + stamp("  ") + text[end:]
+    labels.append("end")
+    text = text.replace(
+        "#include <cuda_runtime.h>\n",
+        f"#include <cuda_runtime.h>\n__device__ long long "
+        f"k4_stamp[{N_STAMPS}];\n", 1)
+    text += ('extern "C" int microep_stamps(void* out) {\n'
+             "  cudaError_t err = cudaMemcpyFromSymbol(out, k4_stamp, "
+             "sizeof(k4_stamp));\n"
+             "  if (err != cudaSuccess) return static_cast<int>(err);\n"
+             f"  static const long long zero[{N_STAMPS}] = {{}};\n"
+             "  return static_cast<int>(cudaMemcpyToSymbol(k4_stamp, zero, "
+             "sizeof(zero)));\n}\n")
+    out_dir = pathlib.Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"{tag}.cu"
+    path.write_text(text)
+    return path, labels
+
+
+def phase_split(lib, labels, run, reps: int = 9) -> list:
+    """K4's cycles by phase in block 0 over ``reps`` launches of ``run``
+    on a stamped library: -> [(phase, median cycles)] between the stamps
+    that were reached."""
+    buf = (ctypes.c_longlong * N_STAMPS)()
+    spans = []
+    for i in range(reps + 1):
+        run()
+        torch.cuda.synchronize()
+        if lib.microep_stamps(buf) != 0:
+            raise RuntimeError("reading K4's stamps failed")
+        hit = [(labels[j], buf[j]) for j in range(len(labels)) if buf[j]]
+        if i:       # the first launch warms up
+            spans.append([(hit[j][0], hit[j + 1][1] - hit[j][1])
+                          for j in range(len(hit) - 1)])
+    return [(name, float(np.median([s[j][1] for s in spans])))
+            for j, (name, _) in enumerate(spans[0])]
+
+
+def describe_split(name: str, label: str, split) -> str:
+    total = sum(c for _, c in split)
+    return (f"phases of {name} at {label}: " + ", ".join(
+        f"{p} {c:.0f} cycles ({c / total:.1%})" for p, c in split)
+        + f"; {total:.0f} cycles in all")
+
+
+def compare_main(args, options) -> None:
+    """``--against`` and ``--phases``: build this checkout's K4 and each
+    other source (and their probe copies) at once, split the phases,
+    compare and time in turns, print."""
+    from ..kernels.build import CSRC
+    sources = {"this checkout": CSRC / "microep_sched.cu"}
+    sources.update({src: pathlib.Path(src).resolve()
+                    for src in args.against})
+    jobs = dict(sources)
+    if args.phases:
+        probes = {n: stamped_source(p, f"probe{i}")
+                  for i, (n, p) in enumerate(sources.items())}
+        jobs.update({("probe", n): path for n, (path, _) in probes.items()})
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = dict(zip(jobs, pool.map(build_library, jobs.values())))
+    libs = {n: sched.bind(built[n]) for n in sources}
+    device = torch.device("cuda", 0)
+    inputs = case_inputs(options, device)
+    if not any(options(n, g, [c]) for n, _, g, _, c, _, _ in inputs):
+        inputs += fig9_inputs(device)
+    if args.phases:
+        for n, (_, labels) in probes.items():
+            lib = sched.bind(built[("probe", n)])
+            lib.microep_stamps.argtypes = [ctypes.c_void_p]
+            for label, dev, n_g, seq, counts, x0, opts in inputs:
+                if label in PHASE_CASES:
+                    split = phase_split(lib, labels, lambda: sched.launch(
+                        lib, counts, dev, n_g, x0, seq, sweeps_of(opts),
+                        **opts))
+                    print(describe_split(n, label, split))
+    for row in compare(libs, inputs):
+        print(describe_turns(row))
+
+
 def case_options(args):
     """K4's keyword options for a case from the command line's flags, as
     ``measure``'s ``options``."""
@@ -604,11 +847,18 @@ def main(argv=None) -> int:
                     help="caps as a factor of the mean device load")
     ap.add_argument("--scheduler-core", action="store_true",
                     help="chip_smoke.py phase 16 alone")
+    ap.add_argument("--against", action="append", default=[],
+                    help="another K4 source (.cu) with the same C entry, "
+                    "checked and timed in turns; may be repeated")
+    ap.add_argument("--phases", action="store_true",
+                    help="split K4's time by phase in probe builds")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_k4 needs a CUDA device")
     if args.scheduler_core:
         scheduler_core()
+    elif args.against or args.phases:
+        compare_main(args, case_options(args))
     else:
         options = case_options(args)
         for name in CASES:

@@ -293,6 +293,16 @@ K4_EXTRA = {
     # R 32: shared memory past 48 KB)
     "e64-g16-r16": (64, (4, 4), 64, "proportional", (256, 2, 1.0)),
     "e256-g64-r32": (256, (8, 8), 128, "proportional", (64, 4, 1.0)),
+    # Fig. 9's 2-row latin groups: (64, 256), the most concurrency in K4's
+    # Gauss-Seidel dataflow (390 levels of 1536 steps), and (16, 128), none
+    # (768 of 768)
+    "fig9-g64-e256": (256, (2, 32), "latin", "proportional", (512, 2, 1.0)),
+    "fig9-g16-e128": (128, (2, 8), "latin", "proportional", (512, 2, 1.0)),
+    # ties: one count everywhere (equal levels in every fill), and no tokens
+    "ties-uniform": (64, (4, 4), "latin", "proportional", 5),
+    "ties-zero": (64, (4, 4), 10, "greedy", 0),
+    # R 3 with -1 padding (2 or 3 replicas an expert), greedy
+    "r3-padded": (32, (2, 4), 10, "greedy", (64, 2, 1.0)),
 }
 
 
@@ -322,6 +332,49 @@ def test_cuda_k4_repeats_bit_for_bit():
     one = ops.schedule(batches[1], dev, n_g, x0, seq)
     two = ops.schedule(batches[1], dev, n_g, x0, seq)
     assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver_mode", ["scan", "batched"])
+@pytest.mark.parametrize("name", ["fig9-g64-e256", "paper-g16"])
+def test_cuda_k4_twenty_launches_repeat_bit_for_bit(name, solver_mode):
+    """20 launches on the same inputs give the same bits: a race in K4's
+    Gauss-Seidel dataflow, or in the Jacobi sweep's packed fills, would
+    show as a bit that moves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K4 is a CUDA kernel)")
+    spec = name if name in time_k4.CASES else K4_EXTRA[name]
+    dev, n_g, seq, batches = time_k4.case(spec, "cuda")
+    options = {"solver_mode": solver_mode}
+    sweeps = time_k4.sweeps_of(options)
+    x0 = ops.schedule(batches[0], dev, n_g, None, seq, sweeps, **options)[0]
+    first = ops.schedule(batches[1], dev, n_g, x0, seq, sweeps, **options)
+    for i in range(19):
+        again = ops.schedule(batches[1], dev, n_g, x0, seq, sweeps,
+                             **options)
+        _identical(again, first, f"{name} {solver_mode} launch {i + 2}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver_mode", ["scan", "batched"])
+def test_cuda_k4_batch_of_four_instances(solver_mode):
+    """One launch over 4 instances at Fig. 9's (64, 256) (a block each)
+    equals a launch per instance and the plain version, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K4 is a CUDA kernel)")
+    dev, n_g, seq, batches = time_k4.case(K4_EXTRA["fig9-g64-e256"], "cuda")
+    counts = torch.stack(batches + batches[:1])
+    options = {"solver_mode": solver_mode}
+    sweeps = time_k4.sweeps_of(options)
+    x0 = torch.rand((4,) + tuple(dev.shape), device="cuda") * (dev >= 0)
+    got = ops.schedule(counts, dev, n_g, x0, seq, sweeps, **options)
+    for i in range(4):
+        one = ops.schedule(counts[i], dev, n_g, x0[i], seq, sweeps,
+                           **options)
+        _identical([t[i] for t in got], one, f"instance {i}")
+    expect = ref.schedule_ref(counts[0], dev, n_g, x0[0], seq, sweeps,
+                              **options)
+    _identical([t[0] for t in got], expect, "instance 0 vs the plain version")
 
 
 @pytest.mark.gpu

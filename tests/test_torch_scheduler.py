@@ -395,3 +395,172 @@ def test_ops_schedule_leading_dims_on_cpu():
                                solver_mode="batched", caps=caps)
             for a, b in zip(got, one):
                 assert torch.equal(a[i, j], b)
+
+
+# ------------------------------- K4's Gauss-Seidel dataflow: the argument
+
+def _latin_dev(rows, cols, num_experts):
+    from repro_torch.core.placement import latin_placement
+    from repro_torch.core.scheduler import SchedStatics
+    return SchedStatics.build(latin_placement(rows, cols, num_experts)).dev
+
+
+@pytest.mark.parametrize("placement,steps,levels", [
+    (("latin", 2, 4, 32), 192, 192), (("latin", 2, 4, 64), 384, 338),
+    (("latin", 2, 8, 64), 384, 102), (("latin", 2, 8, 128), 768, 768),
+    (("latin", 2, 16, 128), 768, 198), (("latin", 2, 32, 256), 1536, 390),
+    (("latin", 4, 4, 64), 384, 361), (("case", "paper-g16"), 384, 122),
+    (("case", "greedy-g8"), 96, 54), (("case", "olmoe-decode"), 384, 384),
+    (("case", "mixtral-decode"), 192, 192)],
+    ids=["fig9-g8-e32", "fig9-g8-e64", "fig9-g16-e64", "fig9-g16-e128",
+         "fig9-g32-e128", "fig9-g64-e256", "olmoe-4x4-latin", "paper-g16",
+         "greedy-g8", "olmoe-decode-g1", "mixtral-decode-g1"])
+def test_step_levels_give_the_critical_paths(placement, steps, levels):
+    """``sched.step_levels`` at the scheduler's 6 sweeps: the steps and the
+    critical path of K4's Gauss-Seidel dataflow on Fig. 9's latin groups
+    and the cases K4 is timed at; one device is fully serial."""
+    dev = (_latin_dev(*placement[1:]) if placement[0] == "latin"
+           else time_k4.case(placement[1], "cpu")[0].numpy())
+    lv = sched.step_levels(dev, SWEEPS)
+    assert lv.size == steps and lv.max() == levels
+    # a step's level is above the level of every earlier step it follows
+    assert (lv[:, 0] >= 1).all() and lv.min() == 1
+
+
+def _topological_orders(dev, sweeps, seed):
+    """The steps (sweep, expert) of ``sweeps`` Gauss-Seidel sweeps in level
+    order and in a seeded random order that keeps every dependency: each
+    step after the last earlier step on each of its devices."""
+    n_e = dev.shape[0]
+    lv = sched.step_levels(dev, sweeps).ravel()
+    level_order = [divmod(int(q), n_e) for q in np.argsort(lv, kind="stable")]
+    preds, last = [], {}
+    for q in range(sweeps * n_e):
+        devs = [int(d) for d in dev[q % n_e] if d >= 0]
+        preds.append({last[d] for d in devs if d in last})
+        for d in devs:
+            last[d] = q
+    rng = np.random.default_rng(seed)
+    waiting = [len(p) for p in preds]
+    after = [[] for _ in preds]
+    for q, p in enumerate(preds):
+        for o in p:
+            after[o].append(q)
+    ready, order = [q for q, n in enumerate(waiting) if n == 0], []
+    while ready:
+        q = ready.pop(int(rng.integers(len(ready))))
+        order.append(divmod(q, n_e))
+        for o in after[q]:
+            waiting[o] -= 1
+            if waiting[o] == 0:
+                ready.append(o)
+    assert len(order) == sweeps * n_e
+    return {"levels": level_order, "random": order}
+
+
+def _gauss_seidel_in(order):
+    """``solver._gauss_seidel`` with its water-fills taken in ``order``
+    ([(sweep, expert)]) instead of sweep by sweep, expert by expert."""
+    def run(x, loads, dev, num_devices, sweeps, weights):
+        valid = dev >= 0
+        safe_dev = torch.where(valid, dev, torch.zeros_like(dev))
+        x = x.clone()
+        dl = device_loads(x, dev, num_devices)
+        assert len(order) == sweeps * dev.shape[0]
+        for _, e in order:
+            xe = x[e]
+            alloc = water_fill(dl[safe_dev[e]] - xe, loads[e], valid[e],
+                               None if weights is None
+                               else weights[safe_dev[e]])
+            dl = dl.index_add(0, safe_dev[e],
+                              torch.where(valid[e], alloc - xe,
+                                          torch.zeros_like(xe)))
+            x[e] = alloc
+        return x
+    return run
+
+
+@pytest.mark.parametrize("placement,variant", [
+    (("latin", 2, 4, 32), "plain"), (("latin", 2, 32, 256), "plain"),
+    (("case", "paper-g16"), "plain"), (("case", "paper-g16"), "weighted"),
+    (("case", "paper-g16"), "capped"),
+    (("latin", 2, 4, 32), "capped-weighted")],
+    ids=["fig9-g8-e32", "fig9-g64-e256", "paper-g16", "paper-g16-weighted",
+         "paper-g16-capped", "fig9-g8-e32-capped-weighted"])
+def test_gauss_seidel_in_any_dependency_order_is_bit_exact(
+        monkeypatch, placement, variant):
+    """The argument K4's dataflow rests on: a Gauss-Seidel step reads only
+    its devices' loads and its own row of the iterate, so the water-fills
+    taken in level order, or in a seeded random order that keeps every
+    dependency, give the sequential sweep's iterate bit for bit, weighted
+    and memory-capped too (the capped solve runs the sweeps twice)."""
+    from repro_torch.core import solver as S
+    dev = (_latin_dev(*placement[1:]) if placement[0] == "latin"
+           else time_k4.case(placement[1], "cpu")[0].numpy())
+    g = int(dev.max()) + 1
+    rng = np.random.default_rng(5)
+    loads = torch.tensor(rng.integers(0, 400, dev.shape[0]),
+                         dtype=torch.float32)
+    x0 = torch.tensor(rng.uniform(0, 50, dev.shape), dtype=torch.float32)
+    kw = {}
+    if "weighted" in variant:
+        kw["weights"] = torch.tensor(rng.uniform(0.5, 2.0, g),
+                                     dtype=torch.float32)
+    if "capped" in variant:
+        kw["mem_caps"] = torch.tensor(
+            np.resize([0.9, 1.3], g) * float(loads.sum()) / g,
+            dtype=torch.float32)
+    dev_t = torch.tensor(dev)
+    expect = S.solve_replica_loads(loads, dev_t, g, x_init=x0,
+                                   sweeps=SWEEPS, **kw).x
+    for kind, order in _topological_orders(dev, SWEEPS, seed=9).items():
+        monkeypatch.setattr(S, "_gauss_seidel", _gauss_seidel_in(order))
+        got = S.solve_replica_loads(loads, dev_t, g, x_init=x0,
+                                    sweeps=SWEEPS, **kw).x
+        assert torch.equal(got, expect), kind
+
+
+def test_time_k4_case_forms():
+    """``time_k4.case`` builds Fig. 9's latin placement where a case names
+    it, and one count for every (expert, source) where a case gives one."""
+    dev, g, seq, batches = time_k4.case(
+        (64, (4, 4), "latin", "greedy", 5), "cpu")
+    np.testing.assert_array_equal(dev.numpy(), _latin_dev(4, 4, 64))
+    assert g == 16 and seq == "greedy" and len(batches) == 3
+    assert all(torch.equal(b, torch.full((64, 16), 5)) for b in batches)
+
+
+def test_time_k4_chain_counts_levels():
+    """``time_k4.chain``: Gauss-Seidel's steps and critical path, Jacobi's
+    sweeps, both doubled with caps, none in vanilla mode."""
+    dev = time_k4.case("paper-g16", "cpu")[0]
+    caps = torch.ones(16)
+    assert time_k4.chain(dev, {}, SWEEPS)[:2] == (384, 122)
+    assert time_k4.chain(dev, {"caps": caps}, SWEEPS)[:2] == (768, 244)
+    assert time_k4.chain(dev, {"solver_mode": "batched"}, 12)[:2] == (768,
+                                                                     12)
+    assert time_k4.chain(dev, {"solver_mode": "batched", "caps": caps},
+                         12)[:2] == (1536, 24)
+    assert time_k4.chain(dev, {"mode": "vanilla"}, SWEEPS)[:2] == (0, 0)
+
+
+def test_time_k4_probe_source_stamps_every_phase(tmp_path):
+    """``time_k4.stamped_source`` puts a barrier and a stamp before each
+    ``// ---- `` phase marker of K4's source and at its kernel's end, and
+    adds the C entry that reads them; the committed source has none."""
+    import re
+    from repro_torch.kernels.build import CSRC
+    src = CSRC / "microep_sched.cu"
+    text = src.read_text()
+    assert "clock64" not in text and "k4_stamp" not in text
+    markers = re.findall(r"^\s*// ---- (\S+)", text, re.M)
+    path, labels = time_k4.stamped_source(src, "probe", tmp_path)
+    probe = path.read_text()
+    assert labels[-1] == "end" and len(labels) == len(markers) + 1
+    assert [lab.split()[0] for lab in labels[:-1]] == markers
+    stamps = re.findall(r"k4_stamp\[(\d+)\] = clock64\(\);", probe)
+    assert stamps == [str(i) for i in range(len(labels))]
+    end = probe.index("cudaError_t launch(")
+    assert probe.rindex("k4_stamp[", 0, end) > probe.rindex("// ---- ", 0,
+                                                             end)
+    assert 'extern "C" int microep_stamps(void* out)' in probe
