@@ -196,22 +196,51 @@ Phases, in order; any failure raises and exits nonzero:
      remat from identical weights: every gradient equal bit for bit, K3
      launched twice as often; (c) rwkv6-7b smoke's card model saved in the
      checkpoint files and restored on the CPU: every parameter equal bit
-     for bit, the loss of a fixed batch within 2e-4.
-Phases 17-21 print each part's wall time, peak memory and kernel launches.
+     for bit, the loss of a fixed batch within 2e-4;
+ 22. expert-load telemetry, forecast replacement and replica-topology
+     replication on olmoe-1b-7b, in the reference's one-device shadow mode
+     (the hooks plan and record, nothing migrates): (a) serve it at full
+     width and depth (phase 4's weights, 4 Poisson requests, 4 slots) with
+     the replacement hook (check every 4 steps) and the trace recorder,
+     once for each policy: reactive, forecast and topology; every request
+     finished, no overflow, K1 and K4 16 times a decode step and no plain
+     version, one [1, 64] trace row of integers a decode step summing to
+     top_k x 16 layers x the rows the step routed, one decision record
+     every 4 steps; then the wall time a decode step with every hook on
+     against none, in turns; (b) each run's trace saved as .npz and .jsonl
+     reads back bit for bit, and a fresh hook fed the trace on the CPU
+     makes the card run's decision records, field for field; (c) train it
+     at full width and 4 layers through ``launch/train.py``'s ``main`` with
+     ``--telemetry-record --trace-out --prewarm --replication`` (4 steps of
+     8 × 512 tokens in 2 micro-batches): K4, K1 and K1b 8 times a step,
+     finite losses, a [4, 1, 64] trace, and after each pre-warm every
+     layer's solver state on the card equal bit for bit to a fresh
+     planner's ``warm_start_x(solver="jacobi")`` on the trace; (d) phase
+     16 (b)'s 4 × 4 group and counts scheduled through K4 on the
+     ``replicated`` placement of (a)'s mean trace row, and on every
+     placement a ``TopologyController`` (check every 4, threshold 1.0, a
+     migration gate of 0, 2 Monte-Carlo samples) fires on (a)'s rows,
+     from that placement and from latin: card equal to the CPU bit for
+     bit, cold and warm, the max load beside HiGHS's optimum, the most
+     replicas an expert within K4's 32.
+Phases 17-22 print each part's wall time, peak memory and kernel launches.
 The last two lines are the kernels' JSON record and the result object.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
+import csv
 import dataclasses
 import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -1627,6 +1656,293 @@ def phase_ckpt_roundtrip(cfg, device) -> None:
           f"within 2e-4)")
 
 
+# ------------------ phase 22: telemetry, replacement and replication
+
+
+# the three trigger policies of the serving hook: (TelemetryConfig fields
+# beside record=True, ReplicationConfig fields or None)
+HOOK_POLICIES = {"reactive": ({}, None),
+                 "forecast": ({"forecast_replacement": True}, None),
+                 "topology": ({}, {"enabled": True, "check_every": 4})}
+
+
+def hook_configs(policy: str):
+    from repro_torch.engine import ReplicationConfig, TelemetryConfig
+    tel, rep = HOOK_POLICIES[policy]
+    return (TelemetryConfig(record=True, **tel),
+            None if rep is None else ReplicationConfig(**rep))
+
+
+@contextlib.contextmanager
+def routed_rows(rows: list):
+    """Append each decode step's active slot count (the rows every MoE
+    layer routes, top_k times each) to ``rows`` while the block runs."""
+    from repro_torch.serve import batching
+    real = batching.BatchManager.next_tokens
+
+    def spy(self):
+        toks, act = real(self)
+        rows.append(int(act.sum()))
+        return toks, act
+    batching.BatchManager.next_tokens = spy
+    try:
+        yield rows
+    finally:
+        batching.BatchManager.next_tokens = real
+
+
+def check_replay(sess, policy: str, tmp: pathlib.Path) -> None:
+    """(b): the session's trace saved as .npz and .jsonl reads back equal
+    to the recorder's history bit for bit, and a fresh hook on the CPU fed
+    the trace makes the session's decision records, field for field."""
+    from repro_torch.core.placement import vanilla_placement
+    from repro_torch.serve import ServeReplacement
+    from repro_torch.telemetry import LoadTrace
+    hist = sess.recorder.history()
+    for ext in ("npz", "jsonl"):
+        tr = LoadTrace.load(sess.recorder.save(str(tmp / f"{policy}.{ext}")))
+        require(tr.loads.dtype == hist.dtype and bool((tr.loads == hist).all())
+                and bool((tr.steps == sess.recorder.trace().steps).all()),
+                f"{policy}: the .{ext} trace differs from the recorder's")
+    tel, rep = hook_configs(policy)
+    cfg = sess.cfg
+    hook = ServeReplacement(
+        vanilla_placement(1, 1, cfg.num_experts * max(cfg.etp, 1)),
+        sess.serve_cfg, 3 * cfg.d_model * cfg.moe_d_ff * 4, seed=sess.seed,
+        telemetry=tel, replication=rep)
+    for step, row in zip(tr.steps, tr.layer_sum()):
+        hook.observe(row, step=int(step))
+    require(hook.events == sess.replacement.events,
+            f"{policy}: the CPU replay's decision records differ from the "
+            f"card run's")
+
+
+def phase_hooks_serve(cfg, serve_cfg, device, tmp: pathlib.Path):
+    """(a) and (b).  -> (the topology run's trace, the card's line)."""
+    from repro_torch.kernels.grouped_matmul import grouped_ffn_flat_cuda
+    from repro_torch.kernels.sched import schedule_cuda
+    from repro_torch.launch.check_train import count_plain_calls
+    from repro_torch.models import decoder as dec
+    from repro_torch.serve import ServingSession, poisson_trace
+    model = dec.init_params(cfg, seed=0, device=device)
+    requests = poisson_trace(4, rate=0.5, vocab=cfg.vocab, prompt_len=8,
+                             gen_len=8, seed=1)
+    n_moe, width = dec.n_moe_layers(cfg), cfg.num_experts * max(cfg.etp, 1)
+    sessions = {}
+    for policy in HOOK_POLICIES:
+        tel, rep = hook_configs(policy)
+        sess = ServingSession(cfg, serve_cfg, device=device, model=model,
+                              telemetry=tel, replication=rep)
+        rows = []
+        with count_plain_calls() as plain, routed_rows(rows):
+            zero_counts(grouped_ffn_flat_cuda)   # just before the main path
+            zero_counts(schedule_cuda)
+            report = sess.run(requests)
+            launched = (grouped_ffn_flat_cuda.launches,   # just after it
+                        schedule_cuda.launches)
+        expect = (report.decode_steps + 1) * n_moe   # + the warm-up step
+        tr = sess.recorder.trace()
+        sums = tr.layer_sum().sum(1)
+        want = cfg.top_k * n_moe * np.asarray(rows, np.float64)
+        events = sess.replacement.events
+        print(f"  {policy}: {len(report.records)} requests, "
+              f"{report.decode_steps} decode steps, K1 {launched[0]} and K4 "
+              f"{launched[1]} launches (expected {expect} each), plain "
+              f"{plain}; trace {tr.loads.shape}, row sums "
+              f"{int(sums.min())}-{int(sums.max())}; {len(events)} "
+              f"decisions, scores {sorted({e['score'] for e in events})}, "
+              f"{report.migrations} migrations ({report.migrated_bytes} B)")
+        require(len(report.records) == len(requests) and report.rejected == 0
+                and report.overflow == 0.0,
+                f"{policy}: served {len(report.records)} of {len(requests)}, "
+                f"overflow {report.overflow}")
+        require(launched == (expect, expect),
+                f"{policy}: K1 and K4 launched {launched}, expected {expect}")
+        require(not any(plain.values()),
+                f"{policy}: a plain version ran on the card path: {plain}")
+        require(tr.loads.shape == (report.decode_steps, 1, width)
+                and tr.meta["layers"] == "summed"
+                and bool((tr.loads == np.round(tr.loads)).all()),
+                f"{policy}: trace {tr.loads.shape}, meta {tr.meta}")
+        require(len(rows) == report.decode_steps
+                and bool((sums == want).all()),
+                f"{policy}: row sums {sums.tolist()} against top_k x "
+                f"{n_moe} layers x rows {rows}")
+        require(len(events) == report.decode_steps // 4
+                and [e["step"] for e in events]
+                == [int(s) for s in tr.steps[3::4]],
+                f"{policy}: {len(events)} decision records over "
+                f"{report.decode_steps} steps, not one every 4")
+        require(report.migration_events == [e for e in events
+                                            if e["fired"]],
+                f"{policy}: the report's migration events are not the "
+                f"fired decisions")
+        check_replay(sess, policy, tmp)
+        sessions[policy] = sess
+    print("  (b) each trace saved as .npz and .jsonl reads back bit for bit;"
+          " the CPU replay's decision records equal the card's")
+    # the decode step with every hook on against none, in turns
+    plain_sess = ServingSession(cfg, serve_cfg, device=device, model=model)
+    hooked = sessions["topology"]
+    per_step = {"none": [], "hooks": []}
+    for name in ("none", "hooks", "hooks", "none"):
+        s = plain_sess if name == "none" else hooked
+        r = s.run(requests)
+        per_step[name].append(r.wall_s / r.decode_steps * 1e3)
+    off, on = (float(np.mean(per_step[k])) for k in ("none", "hooks"))
+    card = card_line()
+    print(f"  (a) decode step, wall time a step of the served run, in turns "
+          f"(none, hooks, hooks, none): no hooks {off:.2f} ms "
+          f"({', '.join(f'{v:.2f}' for v in per_step['none'])}), every hook "
+          f"on (recorder + topology controller) {on:.2f} ms "
+          f"({', '.join(f'{v:.2f}' for v in per_step['hooks'])}), "
+          f"difference {on - off:+.2f} ms; {card}")
+    trace = hooked.recorder.trace()
+    del sessions, hooked, plain_sess, model
+    return trace
+
+
+def phase_hooks_train(cfg, device, tmp: pathlib.Path) -> None:
+    """(c): ``launch.train.main`` with the four flags; the pre-warms it
+    writes are captured and checked against a fresh planner's."""
+    from repro_torch.core.placement import vanilla_placement
+    from repro_torch.kernels.grouped_matmul import (grouped_ffn_flat_bwd_cuda,
+                                                    grouped_ffn_flat_cuda)
+    from repro_torch.kernels.sched import schedule_cuda
+    from repro_torch.kernels.wkv6_chunk import wkv6_bwd_cuda, wkv6_cuda
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.check_train import (count_plain_calls,
+                                                expected_launches,
+                                                kernel_launches)
+    from repro_torch.telemetry import LoadTrace, ReplacementPlanner
+    steps, out, csv_path = 4, tmp / "train.npz", tmp / "train.csv"
+    written = []
+    real = train_cli.prewarm_solver_states
+
+    def spy(states, x):
+        new = real(states, x)
+        written.append((x, [st.x.cpu() for st in new],
+                        {st.x.device.type for st in new}))
+        return new
+    train_cli.prewarm_solver_states = spy
+    try:
+        with count_plain_calls() as plain:
+            zero_counts(grouped_ffn_flat_cuda, grouped_ffn_flat_bwd_cuda,
+                        schedule_cuda, wkv6_cuda,
+                        wkv6_bwd_cuda)           # just before the main path
+            t0 = time.perf_counter()
+            rc = train_cli.main([
+                "--arch", cfg.name, "--layers", str(cfg.num_layers),
+                "--batch", "8", "--seq", "512", "--n-micro", "2",
+                "--steps", str(steps), "--csv", str(csv_path),
+                "--telemetry-record", "--trace-out", str(out), "--prewarm",
+                "--replication", "--replication-check-every", "2"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = kernel_launches()         # just after it
+    finally:
+        train_cli.prewarm_solver_states = real
+    want = expected_launches(cfg, 2, steps)
+    with open(csv_path, newline="") as f:
+        losses = [float(row["loss"]) for row in csv.DictReader(f)]
+    tr = LoadTrace.load(str(out))
+    print(f"  main returned {rc} in {wall:.1f} s; launches {launched} "
+          f"(expected {want}), plain {plain}; losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; trace {tr.loads.shape}, "
+          f"row sums {tr.layer_sum().sum(1).tolist()}; {len(written)} "
+          f"pre-warms")
+    require(rc == 0 and launched == want and not any(plain.values()),
+            f"training launched {launched}, expected {want}; plain {plain}")
+    require(len(losses) == steps and bool(np.isfinite(losses).all()),
+            f"losses {losses}")
+    width = cfg.num_experts * max(cfg.etp, 1)
+    require(tr.loads.shape == (steps, 1, width),
+            f"trace {tr.loads.shape}, expected ({steps}, 1, {width})")
+    planner = ReplacementPlanner(vanilla_placement(1, 1, width),
+                                 check_every=10 ** 9)
+    require(len(written) == steps - planner.min_history + 1,
+            f"{len(written)} pre-warms in {steps} steps")
+    for i, row in enumerate(tr.layer_sum()):
+        planner.observe(row)
+        if i + 1 < planner.min_history:
+            continue
+        x, states, devices = written[i + 1 - planner.min_history]
+        expect = planner.warm_start_x(solver="jacobi")
+        require(devices == {device.type}, f"solver states on {devices}")
+        require(x.dtype == np.float32 and bool((x == expect).all())
+                and all(bool((st.numpy() == np.broadcast_to(
+                    x, st.shape)).all()) for st in states),
+                f"step {i}: the pre-warmed solver states differ from "
+                f"warm_start_x(solver='jacobi')")
+    print(f"  every pre-warm: each of the {cfg.num_layers} layers' solver "
+          f"states on the card equals warm_start_x(solver='jacobi') "
+          f"{written[-1][0].shape} bit for bit")
+
+
+def phase_replicated(trace) -> None:
+    """(d): the ``replicated`` placement from the trace's mean row, and the
+    placements a ``TopologyController`` fires on the trace's rows, each
+    scheduled on the card through K4 equal to the CPU, on phase 16 (b)'s
+    group and counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.placement import latin_placement
+    from repro_torch.engine import PlacementSpec
+    from repro_torch.kernels.sched import MAX_REPLICAS, schedule_cuda
+    from repro_torch.launch import time_k4
+    from repro_torch.replication import TopologyController, replica_histogram
+    cfg = get_config("olmoe-1b-7b")
+    n_e, grid = cfg.num_experts, time_k4.OLMOE_GRID
+    g = grid[0] * grid[1]
+    batches = time_k4.zipf_micro_batches(
+        np.random.default_rng(0), n_e, g, time_k4.OLMOE_TOKENS,
+        time_k4.OLMOE_SKEW, time_k4.MICRO_BATCHES)
+    rows = trace.layer_sum()
+    mean = rows.mean(axis=0)
+    zero_counts(schedule_cuda)
+
+    def check(label, placement):
+        card, cpu = time_k4.engines(n_e, grid, placement=placement)
+        try:
+            time_k4.check_engines(card, cpu, batches, False, label)
+            warm = time_k4.check_engines(card, cpu, batches, True, label)
+        except AssertionError as exc:
+            raise SmokeFailure(str(exc)) from exc
+        rc = card.placement.replica_count()
+        require(int(rc.max()) <= MAX_REPLICAS,
+                f"{label}: {int(rc.max())} replicas, K4 takes "
+                f"{MAX_REPLICAS}")
+        print(f"    {label}: replicas {replica_histogram(card.placement)} "
+              f"(most {int(rc.max())}, K4's limit {MAX_REPLICAS}); warm max "
+              f"load {float(warm[-1].max_load):.1f}, HiGHS "
+              f"{time_k4.lp_max_load(cpu, batches[-1]):.2f}")
+        return card.placement
+    print(f"  (d) olmoe-1b-7b's {n_e} experts on {grid[0]} x {grid[1]} "
+          f"devices, phase 16 (b)'s counts, card = CPU bit for bit, cold "
+          f"and warm:")
+    seed = check("replicated (the trace's mean row)",
+                 PlacementSpec("replicated", loads=tuple(mean)))
+    fired = []
+    for start, p0 in (("replicated", seed),
+                      ("latin", latin_placement(*grid, n_e))):
+        # two Monte-Carlo samples for the 'regenerate' candidate: each
+        # scores Eq. 3 over the 2^16 device subsets (~1 s on the host)
+        ctl = TopologyController(p0, 3 * cfg.d_model * cfg.moe_d_ff * 4,
+                                 check_every=4, threshold=1.0,
+                                 migration_gate=0.0, mc_samples=2, seed=0)
+        for row in rows:
+            new = ctl.observe(row)
+            if new is not None:
+                fired.append((start, len(ctl.decisions), new))
+        print(f"    controller from {start}: {len(ctl.decisions)} checks, "
+              f"{ctl.replacements} fired, {ctl.moved_slots} slots moved "
+              f"({ctl.migrated_bytes} B)")
+    require(fired, "no topology migration fired on the trace")
+    for start, check_no, placement in fired:
+        check(f"fired from {start} at check {check_no}", placement)
+    require(schedule_cuda.launches > 0, "K4 did not run in (d)")
+    print(f"  K4 launched {schedule_cuda.launches} times in (d)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card",
@@ -1795,6 +2111,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase_stats("21 (c) checkpoint round trip"):
         phase_ckpt_roundtrip(rwkv.smoke(), device)
+    torch.cuda.empty_cache()
+
+    print("[22] telemetry, replacement and replication on olmoe-1b-7b "
+          "(shadow mode on one device)")
+    hook_serve_cfg = dataclasses.replace(serve_cfg, replacement=True,
+                                         repl_check_every=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        with phase_stats("22 (a)-(b) serve, full width and depth"):
+            trace = phase_hooks_serve(olmoe, hook_serve_cfg, device,
+                                      pathlib.Path(tmp))
+        torch.cuda.empty_cache()
+        with phase_stats("22 (c) train, full width, 4 layers"):
+            phase_hooks_train(dataclasses.replace(olmoe, num_layers=4),
+                              device, pathlib.Path(tmp))
+        torch.cuda.empty_cache()
+    with phase_stats("22 (d) the replicated placement through K4"):
+        phase_replicated(trace)
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     print(card)

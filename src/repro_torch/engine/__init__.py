@@ -1,7 +1,7 @@
 """Engine facade, typed configuration and the plugin registries."""
 from .config import (ConfigError, DeviceProfile, PlacementSpec,
-                     SchedulePolicy, ServeConfig, profile_slot_budgets,
-                     profile_weights)
+                     ReplicationConfig, SchedulePolicy, ServeConfig,
+                     TelemetryConfig, profile_slot_budgets, profile_weights)
 from .registry import (Registry, RegistryError, baseline_systems,
                        get_baseline_system, get_placement_strategy,
                        placement_strategies, register_baseline_system,
@@ -9,7 +9,8 @@ from .registry import (Registry, RegistryError, baseline_systems,
 from .engine import MicroEPEngine
 
 __all__ = ["ConfigError", "DeviceProfile", "MicroEPEngine", "PlacementSpec",
-           "Registry", "RegistryError", "SchedulePolicy", "ServeConfig",
+           "Registry", "RegistryError", "ReplicationConfig",
+           "SchedulePolicy", "ServeConfig", "TelemetryConfig",
            "baseline_systems", "get_baseline_system",
            "get_placement_strategy", "placement_strategies",
            "profile_slot_budgets", "profile_weights",

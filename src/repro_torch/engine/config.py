@@ -1,6 +1,7 @@
 """Typed configuration of the port's engine and serving path (the port's
 copy of ``PlacementSpec``, ``DeviceProfile``, the device-profile helpers,
-``SchedulePolicy`` and ``ServeConfig`` from ``repro.engine.config``).
+``SchedulePolicy``, ``ServeConfig``, ``TelemetryConfig`` and
+``ReplicationConfig`` from ``repro.engine.config``).
 Each validates at construction (errors list the accepted options) and
 round-trips through ``to_dict``/``from_dict``."""
 from __future__ import annotations
@@ -12,7 +13,8 @@ from typing import Any, Mapping, Optional, Tuple
 import numpy as np
 
 __all__ = ["ConfigError", "DeviceProfile", "PlacementSpec", "SchedulePolicy",
-           "ServeConfig", "profile_weights", "profile_slot_budgets"]
+           "ServeConfig", "TelemetryConfig", "ReplicationConfig",
+           "profile_weights", "profile_slot_budgets"]
 
 
 class ConfigError(ValueError):
@@ -264,31 +266,44 @@ class SchedulePolicy:
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """Continuous-batching serving configuration.
+    """Continuous-batching serving configuration (SERVING.md).
 
-    max_batch — decode slots (the live batch width B).
-    max_seq   — per-slot cache length; every admitted request must satisfy
-                prompt_len + max_new <= max_seq.
-    kv_budget — total KV-cache token budget admission is checked against;
-                None = max_batch * max_seq (slot-limited).
-    eos_token — optional stop token id (None = length-only stop).
+    max_batch        — decode slots (the live batch width B).
+    max_seq          — per-slot cache length; every admitted request must
+                       satisfy prompt_len + max_new <= max_seq (the
+                       per-request ``max_new`` rides on the Request).
+    kv_budget        — total KV-cache token budget the batch manager admits
+                       against; None = max_batch * max_seq (slot-limited).
+    eos_token        — optional stop token id (None = length-only stop).
+    replacement      — enable the adaptive replacement hook (paper §6.4):
+                       predicted-balance-triggered placement migration.
+    repl_check_every — decode steps between replacement evaluations.
+    repl_threshold   — predicted max/ideal device load that triggers one.
     """
 
     max_batch: int = 4
     max_seq: int = 64
     kv_budget: Optional[int] = None
     eos_token: Optional[int] = None
+    replacement: bool = False
+    repl_check_every: int = 16
+    repl_threshold: float = 1.15
 
     def __post_init__(self):
-        for name in ("max_batch", "max_seq"):
+        for name in ("max_batch", "max_seq", "repl_check_every"):
             v = getattr(self, name)
             if not isinstance(v, (int, np.integer)) or v < 1:
                 raise ConfigError(
                     f"ServeConfig.{name} must be a positive int, got {v!r}")
-        if self.kv_budget is not None and self.kv_budget < self.max_seq:
+        if self.kv_budget is not None and \
+                self.kv_budget < self.max_seq:
             raise ConfigError(
                 f"ServeConfig.kv_budget={self.kv_budget} cannot be smaller "
                 f"than max_seq={self.max_seq} (no request would ever fit)")
+        if not self.repl_threshold >= 1.0:
+            raise ConfigError(
+                f"ServeConfig.repl_threshold must be >= 1.0 (ratio of "
+                f"predicted max to ideal load), got {self.repl_threshold!r}")
 
     @property
     def budget_tokens(self) -> int:
@@ -296,19 +311,272 @@ class ServeConfig:
         return (self.kv_budget if self.kv_budget is not None
                 else self.max_batch * self.max_seq)
 
+    # --------------------------------------------------- dict round-trip
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "ServeConfig":
+        return cls(**_known_fields(cls, d))
+
+    # ---------------------------------------------------- CLI round-trip
     @staticmethod
-    def add_cli_args(parser: argparse.ArgumentParser) -> None:
-        d = ServeConfig()
+    def add_cli_args(parser: argparse.ArgumentParser,
+                     defaults: "ServeConfig" = None) -> None:
+        d = defaults if defaults is not None else ServeConfig()
+        b = argparse.BooleanOptionalAction
         g = parser.add_argument_group("serving")
         g.add_argument("--max-batch", type=int, default=d.max_batch)
         g.add_argument("--max-seq", type=int, default=d.max_seq)
         g.add_argument("--kv-budget", type=int, default=d.kv_budget)
         g.add_argument("--eos-token", type=int, default=d.eos_token)
+        g.add_argument("--replacement", action=b, default=d.replacement)
+        g.add_argument("--repl-check-every", type=int,
+                       default=d.repl_check_every)
+        g.add_argument("--repl-threshold", type=float,
+                       default=d.repl_threshold)
 
     @classmethod
     def from_cli_args(cls, args: argparse.Namespace) -> "ServeConfig":
         return cls(max_batch=args.max_batch, max_seq=args.max_seq,
-                   kv_budget=args.kv_budget, eos_token=args.eos_token)
+                   kv_budget=args.kv_budget,
+                   eos_token=args.eos_token, replacement=args.replacement,
+                   repl_check_every=args.repl_check_every,
+                   repl_threshold=args.repl_threshold)
+
+
+@dataclasses.dataclass(frozen=True)
+class TelemetryConfig:
+    """Expert-load telemetry configuration (TELEMETRY.md).
+
+    record               — capture per-step expert loads into a
+                           ``telemetry.LoadTraceRecorder``.
+    trace_path           — where to save the recorded trace (npz, or
+                           ``.jsonl``); None = keep in memory only.
+    predictor            — load-predictor registry key (built-ins: last,
+                           ema, window, frozen; extend with
+                           ``telemetry.register_predictor``).
+    horizon              — forecast distance in steps.
+    window               — sliding-window length for the 'window' predictor.
+    ema_decay            — decay for the 'ema' predictor.
+    freeze_window /      — stabilization window + relative-change threshold
+    freeze_threshold       for the 'frozen' predictor (arXiv:2404.16914).
+    forecast_replacement — drive serving replacement from the forecast
+                           planner instead of the instantaneous-load
+                           trigger (the config switch of TELEMETRY.md).
+    prewarm              — in training, seed the next step's in-graph
+                           solver warm start from the LP oracle on the
+                           forecast loads.
+    """
+
+    record: bool = False
+    trace_path: Optional[str] = None
+    predictor: str = "window"
+    horizon: int = 1
+    window: int = 8
+    ema_decay: float = 0.9
+    freeze_window: int = 8
+    freeze_threshold: float = 0.05
+    forecast_replacement: bool = False
+    prewarm: bool = False
+
+    def __post_init__(self):
+        if not isinstance(self.predictor, str) or not self.predictor:
+            raise ConfigError(
+                f"TelemetryConfig.predictor must be a non-empty registry "
+                f"key, got {self.predictor!r}")
+        for name, lo in (("horizon", 1), ("window", 1),
+                         ("freeze_window", 2)):
+            v = getattr(self, name)
+            if not isinstance(v, (int, np.integer)) or v < lo:
+                raise ConfigError(
+                    f"TelemetryConfig.{name} must be an int >= {lo}, "
+                    f"got {v!r}")
+        if not 0.0 < self.ema_decay < 1.0:
+            raise ConfigError(
+                f"TelemetryConfig.ema_decay must be in (0, 1), "
+                f"got {self.ema_decay!r}")
+        if not self.freeze_threshold > 0:
+            raise ConfigError(
+                f"TelemetryConfig.freeze_threshold must be > 0, "
+                f"got {self.freeze_threshold!r}")
+
+    @property
+    def enabled(self) -> bool:
+        """Anything to do at all (recording, planning, or pre-warming)."""
+        return self.record or self.forecast_replacement or self.prewarm \
+            or self.trace_path is not None
+
+    # --------------------------------------------------- dict round-trip
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "TelemetryConfig":
+        return cls(**_known_fields(cls, d))
+
+    # ---------------------------------------------------- CLI round-trip
+    @staticmethod
+    def add_cli_args(parser: argparse.ArgumentParser,
+                     defaults: "TelemetryConfig" = None) -> None:
+        d = defaults if defaults is not None else TelemetryConfig()
+        b = argparse.BooleanOptionalAction
+        g = parser.add_argument_group("telemetry")
+        g.add_argument("--telemetry-record", action=b, default=d.record,
+                       help="capture per-step expert loads (TELEMETRY.md)")
+        g.add_argument("--trace-out", default=d.trace_path,
+                       help="save the recorded trace here (.npz or .jsonl)")
+        g.add_argument("--predictor", default=d.predictor,
+                       help="load predictor (registry key; built-ins: "
+                            "last, ema, window, frozen)")
+        g.add_argument("--predict-horizon", type=int, default=d.horizon)
+        g.add_argument("--predictor-window", type=int, default=d.window)
+        g.add_argument("--predictor-ema-decay", type=float,
+                       default=d.ema_decay)
+        g.add_argument("--freeze-window", type=int, default=d.freeze_window)
+        g.add_argument("--freeze-threshold", type=float,
+                       default=d.freeze_threshold)
+        g.add_argument("--forecast-replacement", action=b,
+                       default=d.forecast_replacement,
+                       help="drive replacement from the forecast planner "
+                            "instead of the instantaneous-load trigger")
+        g.add_argument("--prewarm", action=b, default=d.prewarm,
+                       help="LP-prewarm the solver from forecast loads")
+
+    @classmethod
+    def from_cli_args(cls, args: argparse.Namespace) -> "TelemetryConfig":
+        return cls(record=args.telemetry_record, trace_path=args.trace_out,
+                   predictor=args.predictor, horizon=args.predict_horizon,
+                   window=args.predictor_window,
+                   ema_decay=args.predictor_ema_decay,
+                   freeze_window=args.freeze_window,
+                   freeze_threshold=args.freeze_threshold,
+                   forecast_replacement=args.forecast_replacement,
+                   prewarm=args.prewarm)
+
+    def to_cli_args(self) -> list:
+        """Flag list such that ``from_cli_args(parser.parse_args(...))``
+        reproduces this config."""
+        flags = [
+            "--telemetry-record" if self.record else "--no-telemetry-record",
+            "--predictor", self.predictor,
+            "--predict-horizon", str(self.horizon),
+            "--predictor-window", str(self.window),
+            "--predictor-ema-decay", str(self.ema_decay),
+            "--freeze-window", str(self.freeze_window),
+            "--freeze-threshold", str(self.freeze_threshold),
+            "--forecast-replacement" if self.forecast_replacement
+            else "--no-forecast-replacement",
+            "--prewarm" if self.prewarm else "--no-prewarm",
+        ]
+        if self.trace_path is not None:
+            flags += ["--trace-out", self.trace_path]
+        return flags
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicationConfig:
+    """Dynamic replica-topology planning configuration (DESIGN.md §12).
+
+    enabled        — plan replica topologies from forecast loads with the
+                     ``repro_torch.replication`` controller (LPLB/EPLB):
+                     hot experts gain replicas, redundant replicas land on
+                     underloaded devices.  False (default) keeps the
+                     static topology — schedules stay bit-identical to
+                     the replication-free path.
+    check_every    — steps between topology evaluations.
+    threshold      — forecast LPP-1 balance (max/ideal) that opens a
+                     migration check; below it the topology is kept.
+    migration_gate — migration-cost price in balance-score units per
+                     full-table move: a candidate topology pays
+                     ``migration_gate * moved_slots / total_slots`` on
+                     top of its forecast score, so it must buy more
+                     balance than its parameter traffic costs.  0 = free
+                     migrations (pure balance chasing).
+    improve_margin — extra balance improvement a candidate must clear
+                     beyond the gate before a migration fires.
+    mc_samples     — Monte-Carlo samples for the same-shape 'regenerate'
+                     candidate scored alongside the planned topology.
+    """
+
+    enabled: bool = False
+    check_every: int = 32
+    threshold: float = 1.15
+    migration_gate: float = 0.05
+    improve_margin: float = 0.0
+    mc_samples: int = 16
+
+    def __post_init__(self):
+        for name in ("check_every", "mc_samples"):
+            v = getattr(self, name)
+            if not isinstance(v, (int, np.integer)) or v < 1:
+                raise ConfigError(
+                    f"ReplicationConfig.{name} must be a positive int, "
+                    f"got {v!r}")
+        if not self.threshold >= 1.0:
+            raise ConfigError(
+                f"ReplicationConfig.threshold must be >= 1.0 (ratio of "
+                f"forecast max to ideal load), got {self.threshold!r}")
+        if not self.migration_gate >= 0:
+            raise ConfigError(
+                f"ReplicationConfig.migration_gate must be >= 0 (score "
+                f"penalty per full-table move), got {self.migration_gate!r}")
+        if not self.improve_margin >= 0:
+            raise ConfigError(
+                f"ReplicationConfig.improve_margin must be >= 0, "
+                f"got {self.improve_margin!r}")
+
+    # --------------------------------------------------- dict round-trip
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "ReplicationConfig":
+        return cls(**_known_fields(cls, d))
+
+    # ---------------------------------------------------- CLI round-trip
+    @staticmethod
+    def add_cli_args(parser: argparse.ArgumentParser,
+                     defaults: "ReplicationConfig" = None) -> None:
+        d = defaults if defaults is not None else ReplicationConfig()
+        b = argparse.BooleanOptionalAction
+        g = parser.add_argument_group("replication")
+        g.add_argument("--replication", action=b, default=d.enabled,
+                       help="dynamic replica-topology planning from "
+                            "forecast loads (DESIGN.md §12)")
+        g.add_argument("--replication-check-every", type=int,
+                       default=d.check_every)
+        g.add_argument("--replication-threshold", type=float,
+                       default=d.threshold)
+        g.add_argument("--migration-gate", type=float,
+                       default=d.migration_gate,
+                       help="migration-cost price in balance-score units "
+                            "per full-table move (0 = free migrations)")
+        g.add_argument("--replication-margin", type=float,
+                       default=d.improve_margin)
+        g.add_argument("--replication-mc-samples", type=int,
+                       default=d.mc_samples)
+
+    @classmethod
+    def from_cli_args(cls, args: argparse.Namespace) -> "ReplicationConfig":
+        return cls(enabled=args.replication,
+                   check_every=args.replication_check_every,
+                   threshold=args.replication_threshold,
+                   migration_gate=args.migration_gate,
+                   improve_margin=args.replication_margin,
+                   mc_samples=args.replication_mc_samples)
+
+    def to_cli_args(self) -> list:
+        """Flag list such that ``from_cli_args(parser.parse_args(...))``
+        reproduces this config."""
+        return [
+            "--replication" if self.enabled else "--no-replication",
+            "--replication-check-every", str(self.check_every),
+            "--replication-threshold", str(self.threshold),
+            "--migration-gate", str(self.migration_gate),
+            "--replication-margin", str(self.improve_margin),
+            "--replication-mc-samples", str(self.mc_samples),
+        ]
 
 
 def _known_fields(cls, d: Mapping[str, Any]) -> dict:

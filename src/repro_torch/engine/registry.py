@@ -1,13 +1,12 @@
 """String-keyed plugin registries for the MicroEP engine (the port's copy
-of ``repro.engine.registry``, without the reference's ``replicated``
-strategy, whose planner waits for the port of ``repro.replication``).
+of ``repro.engine.registry``).
 
 Two extension points are registries instead of if/elif chains:
 
   * **placement strategies** — ``(rows, cols, num_experts, *, seed, loads)
     -> Placement`` factories (paper §6).  The built-ins (vanilla / random /
-    latin / asymmetric) are registered below; adding a new strategy is one
-    decorated function::
+    latin / asymmetric / replicated) are registered below; adding a new
+    strategy is one decorated function::
 
         from repro_torch.engine import register_placement_strategy
 
@@ -198,3 +197,23 @@ def _asymmetric(rows: int, cols: int, num_experts: int, *, seed: int = 0,
                                 np.asarray(loads, np.float64), seed=seed,
                                 num_samples=num_samples,
                                 slot_budgets=slot_budgets, weights=weights)
+
+
+@register_placement_strategy("replicated")
+def _replicated(rows: int, cols: int, num_experts: int, *, seed: int = 0,
+                loads=None, slot_budgets=None, weights=None) -> Placement:
+    """Replica-topology plan (DESIGN.md §12): water-filled replica counts
+    + EPLB-style greedy pack onto the least-loaded devices.  Deterministic
+    (``seed`` is unused).  ``loads`` default to uniform; the engine passes
+    ``slot_budgets``/``weights`` automatically when device profiles are
+    set.  This is the static seed topology the ``repro.replication``
+    controller migrates at runtime.
+
+    Imported lazily so the engine never loads ``replication`` (and its
+    telemetry dependency) unless the strategy is actually used.
+    """
+    from ..replication.topology import replicated_placement
+    return replicated_placement(
+        rows, cols, num_experts,
+        None if loads is None else np.asarray(loads, np.float64),
+        slot_budgets=slot_budgets, weights=weights)

@@ -15,9 +15,23 @@ a dense decoder has no MoE layer and reports no balance).
       --smoke --device cpu           # dense; also gemma-2b
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch paper-mixtral-16x2b --smoke --etp 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch paper-gpt-32x1.3b --smoke --device cpu --replacement \
+      --repl-check-every 4 --telemetry-record --trace-out /tmp/load.npz \
+      [--forecast-replacement | --replication]
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch paper-gpt-32x1.3b --smoke --device cpu --traffic trace \
+      --trace /tmp/load.npz
 
 Runs on the CUDA device unless ``--device cpu`` is given; weights are f32,
-random from ``--seed``, drawn on the device.
+random from ``--seed``, drawn on the device.  ``--replacement`` (reactive;
+``--forecast-replacement`` for the forecast planner) and ``--replication``
+(the replica-topology controller) run the replacement hook in shadow mode
+on one device: it checks and records its decisions, nothing migrates.
+``--telemetry-record`` / ``--trace-out`` record each decode step's expert
+loads; ``--traffic trace --trace FILE`` shapes arrivals from such a load
+trace, ``--traffic replay --trace FILE.json`` replays a JSON request
+trace.
 """
 from __future__ import annotations
 
@@ -28,8 +42,9 @@ import json
 import torch
 
 from ..configs import get_config
-from ..engine import ServeConfig
-from ..serve import ServingSession, poisson_trace, replay_trace
+from ..engine import ReplicationConfig, ServeConfig, TelemetryConfig
+from ..serve import (ServingSession, load_trace, poisson_trace, replay_trace,
+                     trace_requests)
 
 
 def main(argv=None) -> int:
@@ -44,7 +59,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda)")
     ap.add_argument("--traffic", default="poisson",
-                    choices=["poisson", "replay"])
+                    choices=["poisson", "replay", "trace"],
+                    help="'trace' shapes non-stationary arrivals from a "
+                         "recorded expert-load trace (TELEMETRY.md)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--rate", type=float, default=0.25,
                     help="poisson arrival rate (requests per decode step)")
@@ -52,12 +69,23 @@ def main(argv=None) -> int:
                     help="max prompt length (sampled uniform in [len/2, len])")
     ap.add_argument("--gen", type=int, default=16,
                     help="max generation length (sampled like --prompt-len)")
+    ap.add_argument("--trace", default=None,
+                    help="JSON request trace for --traffic replay, or a "
+                         "recorded load trace (npz/jsonl) for "
+                         "--traffic trace")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", action="store_true",
                     help="print the full ServeReport as JSON")
     ServeConfig.add_cli_args(ap)
+    TelemetryConfig.add_cli_args(ap)
+    ReplicationConfig.add_cli_args(ap)
     args = ap.parse_args(argv)
     serve_cfg = ServeConfig.from_cli_args(args)
+    telemetry = TelemetryConfig.from_cli_args(args)
+    replication = ReplicationConfig.from_cli_args(args)
+    if telemetry.forecast_replacement and not serve_cfg.replacement:
+        ap.error("--forecast-replacement selects the trigger policy of the "
+                 "replacement hook; enable the hook with --replacement")
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -76,7 +104,15 @@ def main(argv=None) -> int:
         print(f"note: default --max-seq grown to {serve_cfg.max_seq} to fit "
               f"--prompt-len {args.prompt_len} + --gen {args.gen}")
 
-    if args.traffic == "replay":
+    if args.traffic == "trace":
+        if not args.trace:
+            ap.error("--traffic trace needs --trace LOADTRACE.npz")
+        requests = trace_requests(args.trace, cfg.vocab, rate=args.rate,
+                                  prompt_len=args.prompt_len,
+                                  gen_len=args.gen, seed=args.seed + 1)
+    elif args.traffic == "replay" and args.trace:
+        requests = load_trace(args.trace, cfg.vocab, seed=args.seed + 1)
+    elif args.traffic == "replay":
         every = max(int(round(1.0 / args.rate)), 1)
         requests = replay_trace(
             [(i * every, args.prompt_len, args.gen)
@@ -88,12 +124,18 @@ def main(argv=None) -> int:
             seed=args.seed + 1)
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
-    sess = ServingSession(cfg, serve_cfg, seed=args.seed, device=args.device)
+    sess = ServingSession(
+        cfg, serve_cfg, seed=args.seed, device=args.device,
+        telemetry=telemetry if telemetry.enabled else None,
+        replication=replication if replication.enabled else None)
     report = sess.run(requests)
     print(f"arch={cfg.name} device={sess.device} "
           f"slots={serve_cfg.max_batch} max_seq={serve_cfg.max_seq} "
           f"kv_budget={serve_cfg.budget_tokens} traffic={args.traffic}")
     print(report.summary())
+    if sess.recorder is not None and telemetry.trace_path:
+        print(f"recorded {len(sess.recorder)}-step load trace -> "
+              f"{telemetry.trace_path}")
     if args.json:
         print(json.dumps(report.to_dict(), indent=1))
     return 0

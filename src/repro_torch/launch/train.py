@@ -17,29 +17,49 @@ parallelism (``--etp``), and RWKV-6 decoders (K3 forward, K3b backward).
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
       --layers 8 --batch 8 --seq 512 --steps 4 [--remat]
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
+      --smoke --device cpu --steps 12 --batch 4 --seq 16 \\
+      --telemetry-record --trace-out /tmp/load.npz --prewarm --replication
+
 Runs on the CUDA device unless ``--device cpu`` is given; f32 weights,
 random from ``--seed``, drawn on the device.  ``--remat`` rematerialises
 every block in the backward (off by default, as the reference's
 single-device ``RuntimeConfig(remat=False)``; the reference's single-device
 branch drops the flag, this driver honours it).  ``--ckpt-dir`` saves the
 trained model's reference tree (``decoder.reference_tree``) at the end in
-the reference's checkpoint files, with {"arch": the config's name}.  The
-mesh, multi-host, telemetry, replication and pre-warm flags of the
-reference belong to paths not ported yet, and are refused with an error.
+the reference's checkpoint files, with {"arch": the config's name}.
+
+Telemetry and replication (MoE configs), as the reference's single-device
+branch runs them: ``--telemetry-record`` / ``--trace-out`` record each
+step's per-expert loads (summed over layers and micro-batches, one readback
+a step) into a load trace, saved at the end; ``--prewarm`` fits the
+``--predictor`` on the history and, once it holds ``min_history`` steps,
+writes ``ReplacementPlanner.warm_start_x(solver="jacobi")`` into every MoE
+layer's solver state before the next step; ``--replication`` runs the
+replica-topology controller in shadow mode on the one-device placement
+(it plans and prices, nothing migrates).  The mesh and multi-host flags of
+the reference belong to paths not ported yet, and are refused with an
+error.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..checkpoint import save_checkpoint
 from ..configs import get_config
+from ..core.placement import vanilla_placement
 from ..data.synthetic import SyntheticLM
+from ..engine import ReplicationConfig, TelemetryConfig
 from ..models import decoder as dec
 from ..optim.adamw import AdamWConfig
 from ..optim.schedule import warmup_cosine
+from ..replication import TopologyController
+from ..telemetry import (LoadTraceRecorder, ReplacementPlanner,
+                         predictor_from_config, prewarm_solver_states)
 from ..train.loop import init_train_state, make_train_step
 from ..train.metrics import MetricLogger
 
@@ -51,11 +71,6 @@ def _refuse_unported(ap: argparse.ArgumentParser, args) -> None:
     if args.num_hosts != 1 or args.coordinator or args.host_id:
         ap.error("--coordinator/--num-hosts/--host-id: multi-host training "
                  "is not ported yet (ROADMAP.md, Queue 1)")
-    if args.telemetry_record or args.trace_out or args.prewarm \
-            or args.replication:
-        ap.error("--telemetry-record/--trace-out/--prewarm/--replication: "
-                 "telemetry and replication in training are not ported yet "
-                 "(ROADMAP.md, Queue 1)")
 
 
 def main(argv=None) -> int:
@@ -89,12 +104,12 @@ def main(argv=None) -> int:
     g.add_argument("--coordinator", default=None)
     g.add_argument("--num-hosts", type=int, default=1)
     g.add_argument("--host-id", type=int, default=0)
-    g.add_argument("--telemetry-record", action="store_true")
-    g.add_argument("--trace-out", default=None)
-    g.add_argument("--prewarm", action="store_true")
-    g.add_argument("--replication", action="store_true")
+    TelemetryConfig.add_cli_args(ap)
+    ReplicationConfig.add_cli_args(ap)
     args = ap.parse_args(argv)
     _refuse_unported(ap, args)
+    telemetry = TelemetryConfig.from_cli_args(args)
+    replication = ReplicationConfig.from_cli_args(args)
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -103,19 +118,67 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, etp=args.etp)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    # telemetry needs the per-step expert-load vector out of the step;
+    # dense and RWKV-6 decoders have nothing to record
+    want_load = cfg.moe and (telemetry.record or telemetry.prewarm
+                             or telemetry.trace_path is not None
+                             or replication.enabled)
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     opt_cfg = AdamWConfig(lr=args.lr)
     ts = init_train_state(cfg, seed=args.seed, device=args.device)
     step = make_train_step(
         cfg, opt_cfg=opt_cfg, n_micro=args.n_micro, device=args.device,
         lr_fn=lambda s: warmup_cosine(s, args.lr, warmup=20,
-                                      total=args.steps), remat=args.remat)
+                                      total=args.steps), remat=args.remat,
+        with_expert_load=want_load)
+    recorder = planner = controller = None
+    if want_load:
+        # shadow mode: the degenerate one-device placement of E·etp experts
+        placement = vanilla_placement(1, 1, cfg.num_experts * max(cfg.etp, 1))
+        recorder = LoadTraceRecorder(
+            source="train", meta={"arch": cfg.name, "seed": int(args.seed)})
+    if want_load and telemetry.prewarm:
+        planner = ReplacementPlanner(
+            placement, predictor=predictor_from_config(telemetry),
+            check_every=10 ** 9,        # plan never; forecast every step
+            horizon=telemetry.horizon, seed=args.seed)
+    if want_load and replication.enabled:
+        controller = TopologyController(
+            placement, 3 * cfg.d_model * max(cfg.moe_d_ff, 1) * 4,
+            migration_gate=replication.migration_gate,
+            predictor=predictor_from_config(telemetry),
+            check_every=replication.check_every,
+            threshold=replication.threshold,
+            improve_margin=replication.improve_margin,
+            mc_samples=replication.mc_samples,
+            horizon=telemetry.horizon, seed=args.seed)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq, batch=args.batch,
                        noise=0.05, n_maps=4, seed=args.seed + 1)
     with MetricLogger(csv_path=args.csv, print_every=10) as logger:
         for i, batch in zip(range(args.steps), data):
             ts, m = step(ts, batch)
+            if want_load:
+                eload = m.pop("expert_load").cpu().numpy().astype(np.float64)
+                recorder.record(i, eload)
+                if controller is not None:
+                    controller.observe(eload)   # shadow: nothing to migrate
+                if planner is not None:
+                    planner.observe(eload)
+                    if planner.history_size >= planner.min_history:
+                        ts = ts._replace(solver=prewarm_solver_states(
+                            ts.solver,
+                            planner.warm_start_x(solver="jacobi")))
             logger.log(i, m)
+    if controller is not None:
+        print(f"replication (shadow mode, one device): "
+              f"{len(controller.decisions)} checks, "
+              f"{controller.replacements} topology migrations, "
+              f"{controller.moved_slots} slots moved "
+              f"({controller.migrated_bytes} B)")
+    if recorder is not None and telemetry.trace_path:
+        recorder.save(telemetry.trace_path)
+        print(f"recorded {len(recorder)}-step load trace -> "
+              f"{telemetry.trace_path}")
     if args.ckpt_dir:
         path = save_checkpoint(args.ckpt_dir, args.steps,
                                dec.reference_tree(ts.model),

@@ -571,10 +571,12 @@ def lm_loss_chunked(x: torch.Tensor, w_out: torch.Tensor,
 def loss_fn(model: Decoder, batch: dict,
             solver_states: Optional[List[SolverState]] = None,
             aux_coeff: float = 1e-4, z_coeff: float = 1e-4,
-            remat: bool = False):
+            remat: bool = False, with_expert_load: bool = False):
     """Scalar training loss (CE + MoE aux) of ``batch`` {"tokens",
     "labels": int[B, T]} -> (loss, Metrics, new solver states); ``remat``
-    as :func:`forward`'s."""
+    as :func:`forward`'s.  ``with_expert_load`` appends the layer-summed
+    routed tokens per expert (f32[E·etp], ``MoEMetrics.expert_load``), as
+    the reference's does."""
     cfg = model.cfg
     check_trainable(cfg)
     hidden, moe, new_states = forward(model, batch, solver_states,
@@ -585,6 +587,8 @@ def loss_fn(model: Decoder, batch: dict,
                       z_loss=moe.z_loss,
                       balance=moe.balance / max(n_moe_layers(cfg), 1),
                       overflow=moe.overflow)
+    if with_expert_load:
+        return loss, metrics, new_states, moe.expert_load
     return loss, metrics, new_states
 
 

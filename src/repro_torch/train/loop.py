@@ -78,6 +78,7 @@ def make_train_step(
     z_coeff: float = 1e-4,
     device="cuda",
     remat: bool = False,
+    with_expert_load: bool = False,
 ):
     """Build ``train_step(state, batch) -> (state, metrics dict)``.
 
@@ -90,9 +91,16 @@ def make_train_step(
     gradient (before clipping).  ``remat`` rematerialises every block in
     the backward (``decoder.forward``'s), as the reference's
     ``make_train_step(cfg, rt=Runtime(remat=True))``: the same gradients
-    for less activation memory and a second forward of each block."""
+    for less activation memory and a second forward of each block.
+
+    ``with_expert_load=True`` (MoE configs only) adds "expert_load",
+    f32[E·etp] on the device: routed tokens per expert, summed over layers
+    and micro-batches, for the telemetry recorder (TELEMETRY.md).
+    Scalar-only consumers pop it before logging."""
     dec.check_trainable(cfg)
     device = dec.require_device(device)
+    if with_expert_load and not cfg.moe:
+        raise ValueError("with_expert_load=True needs an MoE config")
 
     def train_step(ts: TrainState, batch: dict):
         model = ts.model
@@ -102,14 +110,16 @@ def make_train_step(
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
-        solver, msum = ts.solver, None
+        solver, msum, esum = ts.solver, None, None
         for mb in _split_micro(batch, n_micro, model.device):
-            loss, metrics, solver = dec.loss_fn(
+            loss, metrics, solver, *eload = dec.loss_fn(
                 model, mb, solver, aux_coeff=aux_coeff, z_coeff=z_coeff,
-                remat=remat)
+                remat=remat, with_expert_load=with_expert_load)
             loss.backward()     # sums into .grad, micro-batch by micro-batch
             m = [v.detach().float() for v in metrics]
             msum = m if msum is None else [a + b for a, b in zip(msum, m)]
+            if eload:
+                esum = eload[0] if esum is None else esum + eload[0]
         grads = {name: p.grad.div_(n_micro) for name, p in params.items()}
         lr = lr_fn(ts.opt.step) if lr_fn is not None else None
         _, opt, gnorm = adamw_update(grads, ts.opt, params, opt_cfg, lr=lr)
@@ -120,6 +130,8 @@ def make_train_step(
                "grad_norm": gnorm,
                "lr": torch.as_tensor(lr if lr is not None else opt_cfg.lr,
                                      dtype=torch.float32)}
+        if with_expert_load:
+            out["expert_load"] = esum
         return TrainState(model=model, opt=opt, solver=solver,
                           step=ts.step + 1), out
 

@@ -1082,3 +1082,100 @@ def test_cuda_remat_step_equals_step_without_remat(name):
         grads[remat] = {n: p.grad for n, p in m.named_parameters()}
     for n, g in grads[False].items():
         assert torch.equal(g, grads[True][n]), n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,etp", [("paper-gpt-32x1.3b", 1),
+                                      ("paper-mixtral-16x2b", 2)],
+                         ids=["paper-gpt", "mixtral-etp2"])
+def test_cuda_served_expert_loads_equal_cpu(name, etp):
+    """A smoke session with the recorder and the topology hook, on the
+    card and on the CPU with identical weights: the same tokens, the same
+    per-step expert loads (one [1, E·etp] row a decode step, read back with
+    the tokens) and the same decision records."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 and K4)")
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.engine import (ReplicationConfig, ServeConfig,
+                                    TelemetryConfig)
+    from repro_torch.models import decoder as dec
+    from repro_torch.serve import ServingSession, replay_trace
+    cfg = dataclasses.replace(get_config(name).smoke(), etp=etp)
+    cpu_model = dec.init_params(cfg, seed=3, device="cpu")
+    models = {"cpu": cpu_model,
+              "cuda": copy.deepcopy(cpu_model).to("cuda")}
+    reqs = replay_trace([(0, 6, 5), (0, 4, 3), (2, 5, 4), (7, 6, 6)],
+                        vocab=cfg.vocab, seed=11)
+    out = {}
+    for dev, model in models.items():
+        sess = ServingSession(
+            cfg, ServeConfig(max_batch=3, max_seq=24, replacement=True,
+                             repl_check_every=4), device=model.device,
+            model=model,
+            telemetry=TelemetryConfig(record=True),
+            replication=ReplicationConfig(enabled=True, check_every=4))
+        rep = sess.run(reqs)
+        out[dev] = (rep, sess.recorder.trace(), sess.replacement.events)
+    (rep_g, tr_g, ev_g), (rep_c, tr_c, ev_c) = out["cuda"], out["cpu"]
+    assert [r.tokens for r in rep_g.records] == \
+        [r.tokens for r in rep_c.records]
+    assert tr_g.loads.shape == (rep_g.decode_steps, 1,
+                                cfg.num_experts * etp)
+    np.testing.assert_array_equal(tr_g.loads, tr_c.loads)
+    np.testing.assert_array_equal(tr_g.steps, tr_c.steps)
+    assert ev_g == ev_c and len(ev_g) == rep_g.decode_steps // 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("replicas", [1, 3, 5], ids=["truncate", "equal",
+                                                     "pad"])
+def test_cuda_prewarm_solver_states_bit_exact(replicas):
+    """The planner's Jacobi warm start written into solver states on the
+    card: each equal bit for bit to the same write on the CPU, on its own
+    device, the replica axis truncated or padded with zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.placement import latin_placement
+    from repro_torch.core.solver import SolverState
+    from repro_torch.telemetry import (ReplacementPlanner,
+                                       prewarm_solver_states)
+    planner = ReplacementPlanner(latin_placement(2, 4, 24),
+                                 check_every=10 ** 9, min_history=1)
+    for row in np.random.default_rng(2).random((5, 24)) * 40:
+        planner.observe(row)
+    x = planner.warm_start_x(solver="jacobi")
+    states = {dev: [SolverState(x=torch.full((24, replicas), 7.0,
+                                             device=dev))
+                    for _ in range(3)] for dev in ("cpu", "cuda")}
+    warm = {dev: prewarm_solver_states(st, x) for dev, st in states.items()}
+    for a, b in zip(warm["cuda"], warm["cpu"]):
+        assert a.x.device.type == "cuda" and a.x.dtype == torch.float32
+        assert torch.equal(a.x.cpu(), b.x)
+    keep = min(replicas, x.shape[1])
+    assert torch.equal(warm["cpu"][0].x[:, :keep],
+                       torch.tensor(x[:, :keep]))
+    assert not warm["cpu"][0].x[:, keep:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loads", ["uniform", "zipf"])
+def test_cuda_replicated_placement_schedules_through_k4(loads):
+    """``PlacementSpec("replicated")`` on olmoe's 4 x 4 group: every
+    schedule on the card (one K4 launch a call) equal bit for bit to the
+    same engine's on the CPU, cold and with the warm start carried."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K4 is a CUDA kernel)")
+    from repro_torch.engine import PlacementSpec
+    from repro_torch.kernels.sched import schedule_cuda
+    rng = np.random.default_rng(4)
+    spec = PlacementSpec("replicated", loads=None if loads == "uniform"
+                         else tuple(rng.zipf(1.3, 64).astype(float)))
+    batches = time_k4.zipf_micro_batches(rng, 64, 16, 512, 1.2, 3)
+    card, cpu = time_k4.engines(64, (4, 4), placement=spec)
+    assert card.placement.replica_count().max() <= 32
+    before = schedule_cuda.launches
+    time_k4.check_engines(card, cpu, batches, False, "replicated")
+    time_k4.check_engines(card, cpu, batches, True, "replicated")
+    assert schedule_cuda.launches - before == 2 * len(batches)

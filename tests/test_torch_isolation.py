@@ -87,7 +87,10 @@ def test_serving_session_defaults_to_cuda():
 
 COPIED_MODULES = ["core/placement.py", "core/graphs.py", "core/lp.py",
                   "core/memory.py", "core/replacement.py",
-                  "engine/registry.py", "moe/baselines.py"]
+                  "engine/registry.py", "moe/baselines.py",
+                  "telemetry/trace.py", "telemetry/predictors.py",
+                  "telemetry/planner.py", "replication/topology.py",
+                  "replication/controller.py", "serve/replacement.py"]
 
 
 @pytest.mark.parametrize("module", COPIED_MODULES)

@@ -90,7 +90,7 @@ def test_placement_helpers_equal():
 
 
 def test_registry_strategies_equal():
-    assert set(placement_strategies) == set(ref_strategies) - {"replicated"}
+    assert set(placement_strategies) == set(ref_strategies)
     loads = _loads(6, 16)
     for name in placement_strategies:
         got = placement_strategies[name](2, 4, 16, seed=3, loads=loads)

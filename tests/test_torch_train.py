@@ -213,11 +213,15 @@ def test_train_cli_runs_dense_and_etp_on_cpu(arch, flags, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--data-axis", "2"],
-                                   ["--telemetry-record"],
-                                   ["--num-hosts", "2"], ["--replication"]],
+                                   ["--telemetry-record", "--data-axis", "2"],
+                                   ["--num-hosts", "2"],
+                                   ["--replication", "--num-hosts", "2"]],
                          ids=["mesh", "telemetry", "multi-host",
                               "replication"])
 def test_train_cli_refuses_unported_flags(flags, capsys):
+    """The mesh and multi-host flags stay refused, with or without the
+    telemetry and replication flags (which one device now takes:
+    ``tests/test_torch_telemetry.py``)."""
     with pytest.raises(SystemExit):
         train_cli.main(["--arch", "olmoe-1b-7b", "--smoke", "--device",
                         "cpu", *flags])
