@@ -222,8 +222,43 @@ Phases, in order; any failure raises and exits nonzero:
      migration gate of 0, 2 Monte-Carlo samples) fires on (a)'s rows,
      from that placement and from latin: card equal to the CPU bit for
      bit, cold and warm, the max load beside HiGHS's optimum, the most
-     replicas an expert within K4's 32.
-Phases 17-22 print each part's wall time, peak memory and kernel launches.
+     replicas an expert within K4's 32;
+ 23. MicroEP across a group of ranks: four processes on the one card, a 2 ×
+     2 group under gloo (torch.distributed; the card machine has one card,
+     and NCCL takes one rank a card), each a rank of the latin placement
+     (64 experts, 2 replicas each, 32 slots a rank); K1, K1b and K4 are
+     built here (phase 2) before the ranks start, so they load the built
+     libraries.  First, on this process alone, the one-device references:
+     olmoe-1b-7b's forward at full width and depth on (b)'s 4 × 2048
+     tokens (its loss), and one training step at full width and 2 layers
+     on (c)'s first batch (its loss); both freed.  Then the ranks
+     (``launch/check_group.py``): (a) one MoE layer at olmoe's width, 2048
+     tokens a rank: every (pipeline_stages, chunk_comm) in {1, 2, 4} x
+     {ppermute, a2a} equal to the monolithic path bit for bit, and to the
+     same tokens through the one-device layer bit for bit; every rank's
+     flow tensor identical; no overflow at capacity factor 2; K4 once and
+     K1 once a chunk a call, no plain version; (b) the forward at full
+     width and depth through ``make_forward_fn`` with the runtime, one
+     sequence a rank, monolithic and 4 stages: the global loss within
+     2e-4 of the one-device forward's and each rank's logits within
+     ``LOGITS_REL`` of its rows of the one-device logits (relative to
+     their largest), K4 16 and K1 16 × stages a forward on every rank; (d) the sync gathers on one layer's expert tensors
+     equal a scatter-add over the placement table (and the table's
+     gather), bit for bit.  Then (c) ``launch/train.py``'s ``main`` with
+     ``--data-axis 2 --model-axis 2 --backend gloo``, olmoe-1b-7b at full
+     width and 2 of 16 layers (f32 master, gradients and moments of all
+     16 layers would not fit four ranks on 80 GB), 4 steps of 8 × 512
+     tokens in 2 micro-batches, held against the one-device run of the
+     same weights, batches and schedule: step 0's CE and loss, every
+     step's gradient norm (the dense all-reduce, the label-share weights,
+     the canonical sync and the global norm) and steps 1-3's losses (the
+     updates) within the limits stated at ``GROUP_STEPS``; every rank's
+     metrics equal, finite losses, no overflow, K4, K1 and K1b 16 times
+     on every rank and no plain version, the rows holding identical
+     canonical experts after every step.  Each rank's peak memory and the
+     times are printed; four processes time-slicing one card through host
+     memory say nothing of speed.
+Phases 17-23 print each part's wall time, peak memory and kernel launches.
 The last two lines are the kernels' JSON record and the result object.
 """
 from __future__ import annotations
@@ -1943,6 +1978,151 @@ def phase_replicated(trace) -> None:
     print(f"  K4 launched {schedule_cuda.launches} times in (d)")
 
 
+GROUP_STEPS = 4              # (c)'s training steps
+GROUP_LR = 3e-3              # launch/train.py's default --lr
+# (b) and (c) against one device, 3-5 times the gaps read on the card
+# (PERF.md §6, PR 27): (b) each rank's logits within 1e-5 of the one-device
+# rows' largest magnitude (read 2.1e-6 to 2.5e-6); (c) step 0's CE within
+# 1e-4 (read 3.3e-5) and its loss within 2e-4 (read 8.7e-5: the MoE aux
+# terms are per-rank means on the group, whole-batch on one device), every
+# step's gradient norm within a relative 2e-4 (read 4.9e-5 at most), and
+# steps 1-3's losses within 5e-4 (read 1.05e-4)
+LOGITS_REL = 1e-5
+STEP0_CE, STEP0_LOSS, GNORM_REL, LATER_LOSS = 1e-4, 2e-4, 2e-4, 5e-4
+
+
+def group_references(cfg, device, ref_dir: pathlib.Path) -> tuple:
+    """23: the one-device forward's loss on (b)'s batch, its logits saved
+    row by row (a rank's sequence) into ``ref_dir``, then the one-device
+    training run at 2 layers on (c)'s batches with (c)'s schedule: each
+    step's metrics."""
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch.check_group import forward_batch
+    from repro_torch.launch.runtime import make_forward_fn
+    from repro_torch.models import decoder as dec
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.train.loop import init_train_state, make_train_step
+    with phase_stats("23 one-device forward, full width and depth"):
+        model = dec.init_params(cfg, seed=0, device=device)
+        batch = forward_batch(cfg, 4, 1, device)
+        logits = make_forward_fn(model, last_only=False, device=device)(batch)
+        fwd_loss = float(dec.lm_loss(logits, batch["labels"]))
+        for r in range(logits.shape[0]):
+            torch.save(logits[r:r + 1].cpu().clone(),
+                       ref_dir / f"logits{r}.pt")
+        del model, logits
+    torch.cuda.empty_cache()
+    with phase_stats(f"23 one-device training, 2 layers, {GROUP_STEPS} "
+                     f"steps"):
+        cfg2 = dataclasses.replace(cfg, num_layers=2)
+        ts = init_train_state(cfg2, seed=0, device=device)
+        step = make_train_step(
+            cfg2, opt_cfg=AdamWConfig(lr=GROUP_LR), n_micro=2, device=device,
+            lr_fn=lambda s: warmup_cosine(s, GROUP_LR, warmup=20,
+                                          total=GROUP_STEPS))
+        data = SyntheticLM(vocab=cfg.vocab, seq_len=512, batch=8, noise=0.05,
+                           n_maps=4, seed=1)
+        train = []
+        for _, b in zip(range(GROUP_STEPS), data):
+            ts, m = step(ts, b)
+            train.append({k: float(v) for k, v in m.items()})
+        del ts, step
+    torch.cuda.empty_cache()
+    print(f"  one-device forward loss {fwd_loss:.6f}; training losses "
+          + ", ".join(f"{m['loss']:.6f}" for m in train)
+          + f", step 0's CE {train[0]['ce_loss']:.6f} and gradient norm "
+          f"{train[0]['grad_norm']:.6f}")
+    return fwd_loss, train
+
+
+def phase_group(cfg, device, tmp: pathlib.Path) -> None:
+    """23: (a), (b), (d) on four ranks, then (c) through ``launch/train``."""
+    from repro_torch.launch import check_group
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import spawn_group
+    fwd_loss, train = group_references(cfg, device, tmp)
+    held = torch.cuda.memory_allocated(device) / 2 ** 30
+    print(f"  this process holds {held:.2f} GiB while the ranks run")
+    require(held < 1.0, "the one-device references were not freed")
+    t0 = time.perf_counter()
+    recs = spawn_group(check_group.group_checks, (0, str(tmp)), 2, 2,
+                       backend="gloo", device="cuda")
+    print(f"  [23 (a), (b), (d)] four ranks in {time.perf_counter() - t0:.1f} "
+          f"s")
+    for r in recs:
+        a, b, d = r["layer"], r["forward"], r["sync"]
+        print(f"  rank {r['index']}: (a) "
+              + ", ".join(f"{v} {x['ms']:.0f} ms" for v, x in
+                          a["variants"].items())
+              + f"; equal to G=1 {a['g1_equal']} (max {a['g1_max_abs']:.1e}),"
+              f" flows identical {a['flow_identical']}, peak "
+              f"{a['peak_gib']:.2f} GiB; (b) loss "
+              + ", ".join(f"{s} stages {v:.6f} in {b['ms'][s]:.0f} ms, "
+                          f"logits off by {b['logits_rel'][s]:.2e} of their "
+                          f"largest" for s, v in b["loss"].items())
+              + f", peak {b['peak_gib']:.2f} GiB; (d) {d['matchings']} "
+              f"matchings, to canonical {d['to_canonical_ms']:.0f} ms, to "
+              f"working {d['to_working_ms']:.0f} ms, peak "
+              f"{d['peak_gib']:.2f} GiB")
+        for s, v in b["loss"].items():
+            require(abs(v - fwd_loss) < 2e-4,
+                    f"rank {r['index']}: the group forward's loss {v:.6f} "
+                    f"({s} stages) against the one-device {fwd_loss:.6f}")
+            require(b["logits_rel"][s] < LOGITS_REL,
+                    f"rank {r['index']}: the logits ({s} stages) are off by "
+                    f"{b['logits_rel'][s]:.2e} of the one-device rows' "
+                    f"largest (limit {LOGITS_REL})")
+    report = tmp / "group_train"
+    t0 = time.perf_counter()
+    rc = train_cli.main([
+        "--arch", cfg.name, "--layers", "2", "--batch", "8", "--seq", "512",
+        "--n-micro", "2", "--steps", str(GROUP_STEPS), "--lr", str(GROUP_LR),
+        "--data-axis", "2", "--model-axis", "2", "--backend", "gloo",
+        "--report", str(report)])
+    wall = time.perf_counter() - t0
+    recs = [json.loads((report / f"rank{i}.json").read_text())
+            for i in range(4)]
+    n = 2 * 2 * GROUP_STEPS                     # layers x micro x steps
+    want = {"K1": n, "K1b": n, "K4": n}
+    for r in recs:
+        losses = [st["loss"] for st in r["steps"]]
+        print(f"  [23 (c)] rank {r['rank']}: losses "
+              f"{', '.join(f'{v:.6f}' for v in losses)}; step walls "
+              f"{', '.join('%.1f' % st['wall_s'] for st in r['steps'])} s; "
+              f"launches {r['launches']}, plain {r['plain']}; peak "
+              f"{r['peak_gib']:.2f} GiB")
+        require(rc == 0 and r["launches"] == want and not any(
+            r["plain"].values()), f"rank {r['rank']}: launches "
+            f"{r['launches']} (expected {want}), plain {r['plain']}")
+        require(bool(np.isfinite(losses).all()) and all(
+            st["overflow"] == 0 and st["same_rows"] for st in r["steps"]),
+            f"rank {r['rank']}: {r['steps']}")
+        metrics = [{k: v for k, v in st.items()
+                    if k not in ("wall_s", "digest")} for st in r["steps"]]
+        require(metrics == [{k: v for k, v in st.items()
+                             if k not in ("wall_s", "digest")}
+                            for st in recs[0]["steps"]],
+                f"rank {r['rank']}'s metrics differ from rank 0's")
+    got, want_m = recs[0]["steps"], train
+    gaps = {"step 0 CE": abs(got[0]["ce_loss"] - want_m[0]["ce_loss"]),
+            "step 0 loss": abs(got[0]["loss"] - want_m[0]["loss"]),
+            "gradient norm (relative)": max(
+                abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                for g, w in zip(got, want_m)),
+            "steps 1-3 loss": max(abs(g["loss"] - w["loss"]) for g, w in
+                                  zip(got[1:], want_m[1:]))}
+    print(f"  [23 (c)] main returned {rc} in {wall:.1f} s; against the "
+          f"one-device run: "
+          + ", ".join(f"{k} off by {v:.3e}" for k, v in gaps.items())
+          + "; gradient norms "
+          + ", ".join(f"{g['grad_norm']:.6f}/{w['grad_norm']:.6f}"
+                      for g, w in zip(got, want_m)))
+    for (k, v), limit in zip(gaps.items(), (STEP0_CE, STEP0_LOSS, GNORM_REL,
+                                            LATER_LOSS)):
+        require(v < limit, f"(c) {k} off by {v:.3e} (limit {limit})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card",
@@ -2128,6 +2308,12 @@ def main() -> int:
         torch.cuda.empty_cache()
     with phase_stats("22 (d) the replicated placement through K4"):
         phase_replicated(trace)
+    torch.cuda.empty_cache()
+
+    print("[23] MicroEP across a 2 x 2 group of ranks sharing the card "
+          "(gloo): olmoe-1b-7b")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_group(olmoe, device, pathlib.Path(tmp))
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     print(card)

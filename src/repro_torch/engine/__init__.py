@@ -1,15 +1,17 @@
 """Engine facade, typed configuration and the plugin registries."""
-from .config import (ConfigError, DeviceProfile, PlacementSpec,
-                     ReplicationConfig, SchedulePolicy, ServeConfig,
-                     TelemetryConfig, profile_slot_budgets, profile_weights)
+from .config import (ConfigError, DeviceProfile, MemoryConfig,
+                     PlacementSpec, ReplicationConfig, RuntimeConfig,
+                     SchedulePolicy, ServeConfig, TelemetryConfig,
+                     profile_slot_budgets, profile_weights)
 from .registry import (Registry, RegistryError, baseline_systems,
                        get_baseline_system, get_placement_strategy,
                        placement_strategies, register_baseline_system,
                        register_placement_strategy)
 from .engine import MicroEPEngine
 
-__all__ = ["ConfigError", "DeviceProfile", "MicroEPEngine", "PlacementSpec",
-           "Registry", "RegistryError", "ReplicationConfig",
+__all__ = ["ConfigError", "DeviceProfile", "MemoryConfig", "MicroEPEngine",
+           "PlacementSpec", "Registry", "RegistryError", "ReplicationConfig",
+           "RuntimeConfig",
            "SchedulePolicy", "ServeConfig", "TelemetryConfig",
            "baseline_systems", "get_baseline_system",
            "get_placement_strategy", "placement_strategies",

@@ -1,7 +1,7 @@
 """Typed configuration of the port's engine and serving path (the port's
 copy of ``PlacementSpec``, ``DeviceProfile``, the device-profile helpers,
-``SchedulePolicy``, ``ServeConfig``, ``TelemetryConfig`` and
-``ReplicationConfig`` from ``repro.engine.config``).
+``SchedulePolicy``, ``MemoryConfig``, ``RuntimeConfig``, ``ServeConfig``,
+``TelemetryConfig`` and ``ReplicationConfig`` from ``repro.engine.config``).
 Each validates at construction (errors list the accepted options) and
 round-trips through ``to_dict``/``from_dict``."""
 from __future__ import annotations
@@ -13,7 +13,8 @@ from typing import Any, Mapping, Optional, Tuple
 import numpy as np
 
 __all__ = ["ConfigError", "DeviceProfile", "PlacementSpec", "SchedulePolicy",
-           "ServeConfig", "TelemetryConfig", "ReplicationConfig",
+           "MemoryConfig", "RuntimeConfig", "ServeConfig", "TelemetryConfig",
+           "ReplicationConfig",
            "profile_weights", "profile_slot_budgets"]
 
 
@@ -262,6 +263,324 @@ class SchedulePolicy:
     @classmethod
     def from_dict(cls, d: Mapping[str, Any]) -> "SchedulePolicy":
         return cls(**_known_fields(cls, d))
+
+
+_RECOMPUTE_POLICIES = ("never", "auto", "always")
+
+
+@dataclasses.dataclass(frozen=True)
+class MemoryConfig:
+    """Memory-aware fine-grained scheduling (MemFine, DESIGN.md §16).
+
+    enabled          — turn the activation-memory planner on.  False
+                       (default): no model is built, no caps are threaded.
+    hbm_budget_mb    — per-device activation budget, MiB (> 0 when enabled).
+    headroom         — share of the budget held back as slack, [0, 0.9).
+    recompute_policy — 'never' | 'auto' | 'always'.
+    max_chunks       — most dispatch-pipeline chunks the planner may pick.
+
+    CLI: ``--memory``, ``--hbm-budget-mb``, ``--mem-headroom``,
+    ``--recompute-policy``, ``--mem-max-chunks``.
+    """
+
+    enabled: bool = False
+    hbm_budget_mb: float = 0.0
+    headroom: float = 0.05
+    recompute_policy: str = "auto"
+    max_chunks: int = 8
+
+    def __post_init__(self):
+        _check_choice("MemoryConfig.recompute_policy", self.recompute_policy,
+                      _RECOMPUTE_POLICIES)
+        object.__setattr__(self, "hbm_budget_mb", float(self.hbm_budget_mb))
+        object.__setattr__(self, "headroom", float(self.headroom))
+        if self.enabled and not self.hbm_budget_mb > 0:
+            raise ConfigError(
+                f"MemoryConfig.hbm_budget_mb must be > 0 when memory-aware "
+                f"scheduling is enabled, got {self.hbm_budget_mb!r}")
+        if self.hbm_budget_mb < 0:
+            raise ConfigError(
+                f"MemoryConfig.hbm_budget_mb must be >= 0, "
+                f"got {self.hbm_budget_mb!r}")
+        if not (0.0 <= self.headroom < 0.9):
+            raise ConfigError(
+                f"MemoryConfig.headroom must be in [0, 0.9), "
+                f"got {self.headroom!r}")
+        if not isinstance(self.max_chunks, (int, np.integer)) or \
+                self.max_chunks < 1:
+            raise ConfigError(
+                f"MemoryConfig.max_chunks must be a positive int, "
+                f"got {self.max_chunks!r}")
+
+    @property
+    def budget_bytes(self) -> float:
+        return self.hbm_budget_mb * 2.0 ** 20
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "MemoryConfig":
+        return cls(**_known_fields(cls, d))
+
+
+_DTYPES = ("float32", "bfloat16")
+_CHUNK_COMMS = ("ppermute", "a2a")
+# the reference's knobs of its XLA lowering, which the port has no use for:
+# the kernel follows the tensor's device, and nothing is scanned or sharded
+# by GSPMD
+_JAX_ONLY = ("impl", "unroll", "layout", "seq_parallel")
+
+# legacy build_runtime(**kwargs) name -> (section, field)
+_LEGACY_KWARGS = {
+    "dtype": (None, "dtype"),
+    "capacity_factor": (None, "capacity_factor"),
+    "remat": (None, "remat"),
+    "placement_strategy": ("placement", "strategy"),
+    "seed": ("placement", "seed"),
+    "loads": ("placement", "loads"),
+    "mode": ("policy", "mode"),
+    "sweeps": ("policy", "sweeps"),
+    "locality": ("policy", "locality"),
+    "sequencing": ("policy", "sequencing"),
+    "solver_mode": ("policy", "solver_mode"),
+    "pipeline_stages": (None, "pipeline_stages"),
+    "chunk_comm": (None, "chunk_comm"),
+    "device_profiles": (None, "device_profiles"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """The group runtime's configuration (``launch.runtime.build_runtime``).
+
+    dtype           — working dtype: 'float32' (default, forward and
+                      training) or 'bfloat16' (the forward only: K1 takes
+                      bf16, K1b f32 only, so a bf16 training step raises).
+    capacity_factor — per-(src, dst) dispatch chunk head-room (§4).
+    remat           — rematerialise every block in the backward.
+    pipeline_stages — destination chunks of the MoE dispatch pipeline
+                      (1 = monolithic; counts that do not divide the group
+                      fall back to the largest divisor below).
+    chunk_comm      — a pipeline stage's collective: 'ppermute' | 'a2a'.
+    device_profiles — per-device :class:`DeviceProfile` tuple, one entry a
+                      flat device of the group, row-major (DESIGN.md §11).
+    memory          — :class:`MemoryConfig` (MemFine, DESIGN.md §16).
+
+    The reference's ``impl``, ``unroll``, ``layout`` and ``seq_parallel``
+    steer its XLA lowering and have no counterpart: ``from_kwargs`` refuses
+    them by name.
+    """
+
+    placement: PlacementSpec = PlacementSpec()
+    policy: SchedulePolicy = SchedulePolicy()
+    dtype: str = "float32"
+    capacity_factor: float = 2.0
+    remat: bool = False
+    pipeline_stages: int = 1
+    chunk_comm: str = "ppermute"
+    device_profiles: Optional[Tuple[DeviceProfile, ...]] = None
+    memory: MemoryConfig = MemoryConfig()
+
+    def __post_init__(self):
+        if isinstance(self.placement, str):
+            object.__setattr__(self, "placement",
+                               PlacementSpec(strategy=self.placement))
+        if not isinstance(self.placement, PlacementSpec):
+            raise ConfigError(
+                f"RuntimeConfig.placement must be a PlacementSpec or a "
+                f"strategy name, got {self.placement!r}")
+        if not isinstance(self.policy, SchedulePolicy):
+            raise ConfigError(
+                f"RuntimeConfig.policy must be a SchedulePolicy, "
+                f"got {self.policy!r}")
+        _check_choice("RuntimeConfig.dtype", self.dtype, _DTYPES)
+        _check_choice("RuntimeConfig.chunk_comm", self.chunk_comm,
+                      _CHUNK_COMMS)
+        if not self.capacity_factor > 0:
+            raise ConfigError(
+                f"RuntimeConfig.capacity_factor must be > 0, "
+                f"got {self.capacity_factor!r}")
+        if not isinstance(self.pipeline_stages, (int, np.integer)) or \
+                self.pipeline_stages < 1:
+            raise ConfigError(
+                f"RuntimeConfig.pipeline_stages must be a positive int, "
+                f"got {self.pipeline_stages!r}")
+        object.__setattr__(self, "device_profiles",
+                           _canonical_profiles(self.device_profiles))
+        if self.memory is None:
+            object.__setattr__(self, "memory", MemoryConfig())
+        elif isinstance(self.memory, Mapping):
+            object.__setattr__(self, "memory",
+                               MemoryConfig.from_dict(self.memory))
+        elif not isinstance(self.memory, MemoryConfig):
+            raise ConfigError(
+                f"RuntimeConfig.memory must be a MemoryConfig (or a dict "
+                f"form of one), got {self.memory!r}")
+
+    @property
+    def torch_dtype(self):
+        import torch
+        return {"float32": torch.float32, "bfloat16": torch.bfloat16}[
+            self.dtype]
+
+    def check_trainable(self) -> None:
+        """Raise unless a training step runs in this working dtype."""
+        if self.dtype != "float32":
+            raise ConfigError(
+                f"RuntimeConfig.dtype={self.dtype!r}: training runs in "
+                f"float32 only (K1b, K1's backward, takes float32; a bf16 "
+                f"K1b is open work, ROADMAP.md Queue 2)")
+
+    # --------------------------------------------------- dict round-trip
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["placement"] = self.placement.to_dict()
+        d["policy"] = self.policy.to_dict()
+        d["memory"] = self.memory.to_dict()
+        if self.device_profiles is not None:
+            d["device_profiles"] = [p.to_dict()
+                                    for p in self.device_profiles]
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "RuntimeConfig":
+        kw = dict(_known_fields(cls, d))
+        if isinstance(kw.get("placement"), Mapping):
+            kw["placement"] = PlacementSpec.from_dict(kw["placement"])
+        if isinstance(kw.get("policy"), Mapping):
+            kw["policy"] = SchedulePolicy.from_dict(kw["policy"])
+        return cls(**kw)
+
+    # ------------------------------------------------- legacy kwargs shim
+    @classmethod
+    def from_kwargs(cls, **kwargs) -> "RuntimeConfig":
+        """Build from the historical ``build_runtime`` keyword surface
+        (``placement_strategy=``, ``mode=``, ``locality=``, ...)."""
+        top: dict = {}
+        placement: dict = {}
+        policy: dict = {}
+        for k, v in kwargs.items():
+            if k in _JAX_ONLY:
+                raise ConfigError(
+                    f"build_runtime option {k!r} steers the reference's XLA "
+                    f"lowering and has no counterpart in the port")
+            if k not in _LEGACY_KWARGS:
+                raise ConfigError(
+                    f"unknown build_runtime option {k!r}; accepted options: "
+                    f"{', '.join(sorted(_LEGACY_KWARGS))}")
+            section, field = _LEGACY_KWARGS[k]
+            (top if section is None else
+             placement if section == "placement" else policy)[field] = v
+        return cls(placement=PlacementSpec(**placement),
+                   policy=SchedulePolicy(**policy), **top)
+
+    # ---------------------------------------------------- CLI round-trip
+    @staticmethod
+    def add_cli_args(parser: argparse.ArgumentParser,
+                     defaults: "RuntimeConfig" = None) -> None:
+        """Install the engine flag surface on ``parser``; ``defaults``
+        seeds per-entry-point defaults."""
+        d = defaults if defaults is not None else RuntimeConfig()
+        b = argparse.BooleanOptionalAction
+        g = parser.add_argument_group("MicroEP engine")
+        g.add_argument("--placement", default=d.placement.strategy,
+                       help="placement strategy (registry key; built-ins: "
+                            "vanilla, random, latin, asymmetric)")
+        g.add_argument("--placement-seed", type=int,
+                       default=d.placement.seed)
+        g.add_argument("--mode", default=d.policy.mode, choices=_MODES)
+        g.add_argument("--sweeps", type=int, default=d.policy.sweeps)
+        g.add_argument("--locality", action=b, default=d.policy.locality)
+        g.add_argument("--sequencing", default=d.policy.sequencing,
+                       choices=_SEQUENCINGS)
+        g.add_argument("--solver-mode", default=d.policy.solver_mode,
+                       choices=_SOLVER_MODES,
+                       help="in-step LP solver sweep order: scan "
+                            "(Gauss-Seidel) or batched (damped Jacobi)")
+        g.add_argument("--dtype", default=d.dtype, choices=_DTYPES)
+        g.add_argument("--capacity-factor", type=float,
+                       default=d.capacity_factor)
+        g.add_argument("--remat", action=b, default=d.remat,
+                       help="rematerialise every block in the backward")
+        g.add_argument("--pipeline-stages", type=int,
+                       default=d.pipeline_stages,
+                       help="destination chunks of the MoE dispatch "
+                            "pipeline (1 = monolithic)")
+        g.add_argument("--chunk-comm", default=d.chunk_comm,
+                       choices=_CHUNK_COMMS,
+                       help="a pipeline stage's collective")
+        g.add_argument("--device-profiles",
+                       default=(",".join(p.to_cli()
+                                         for p in d.device_profiles)
+                                if d.device_profiles else None),
+                       help="per-device 'weight[@slots]' list, comma-"
+                            "separated, one entry per MicroEP-group device "
+                            "(e.g. '2@4,1@2,1@2,1@2'); omit for a "
+                            "homogeneous group (DESIGN.md §11)")
+        m = parser.add_argument_group("MemFine memory-aware scheduling "
+                                      "(DESIGN.md §16)")
+        m.add_argument("--memory", action=b, default=d.memory.enabled,
+                       help="enable the activation-memory planner "
+                            "(requires --hbm-budget-mb > 0)")
+        m.add_argument("--hbm-budget-mb", type=float,
+                       default=d.memory.hbm_budget_mb,
+                       help="per-device HBM activation budget, MiB")
+        m.add_argument("--mem-headroom", type=float,
+                       default=d.memory.headroom,
+                       help="fraction of the budget held back as slack")
+        m.add_argument("--recompute-policy", default=d.memory.recompute_policy,
+                       choices=_RECOMPUTE_POLICIES,
+                       help="when chunks may trade recompute for memory")
+        m.add_argument("--mem-max-chunks", type=int,
+                       default=d.memory.max_chunks,
+                       help="upper bound on planner-chosen pipeline chunks")
+
+    @classmethod
+    def from_cli_args(cls, args: argparse.Namespace) -> "RuntimeConfig":
+        return cls(
+            placement=PlacementSpec(strategy=args.placement,
+                                    seed=args.placement_seed),
+            policy=SchedulePolicy(mode=args.mode, sweeps=args.sweeps,
+                                  locality=args.locality,
+                                  sequencing=args.sequencing,
+                                  solver_mode=args.solver_mode),
+            dtype=args.dtype, capacity_factor=args.capacity_factor,
+            remat=args.remat, pipeline_stages=args.pipeline_stages,
+            chunk_comm=args.chunk_comm,
+            device_profiles=args.device_profiles,
+            memory=MemoryConfig(enabled=args.memory,
+                                hbm_budget_mb=args.hbm_budget_mb,
+                                headroom=args.mem_headroom,
+                                recompute_policy=args.recompute_policy,
+                                max_chunks=args.mem_max_chunks))
+
+    def to_cli_args(self) -> list:
+        """Flag list such that ``from_cli_args(parser.parse_args(...))``
+        reproduces this config (modulo ``loads``, which has no flag)."""
+        flags = [
+            "--placement", self.placement.strategy,
+            "--placement-seed", str(self.placement.seed),
+            "--mode", self.policy.mode,
+            "--sweeps", str(self.policy.sweeps),
+            "--locality" if self.policy.locality else "--no-locality",
+            "--sequencing", self.policy.sequencing,
+            "--solver-mode", self.policy.solver_mode,
+            "--dtype", self.dtype,
+            "--capacity-factor", str(self.capacity_factor),
+            "--remat" if self.remat else "--no-remat",
+            "--pipeline-stages", str(self.pipeline_stages),
+            "--chunk-comm", self.chunk_comm,
+            "--memory" if self.memory.enabled else "--no-memory",
+            "--hbm-budget-mb", str(self.memory.hbm_budget_mb),
+            "--mem-headroom", str(self.memory.headroom),
+            "--recompute-policy", self.memory.recompute_policy,
+            "--mem-max-chunks", str(self.memory.max_chunks),
+        ]
+        if self.device_profiles is not None:
+            flags += ["--device-profiles",
+                      ",".join(p.to_cli() for p in self.device_profiles)]
+        return flags
 
 
 @dataclasses.dataclass(frozen=True)

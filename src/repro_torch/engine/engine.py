@@ -243,17 +243,33 @@ class MicroEPEngine:
 
     def moe_spec(self, tokens_per_device: int, top_k: int, *,
                  activation: str = "swiglu", capacity_factor: float = 2.0,
-                 bm: int = 128,
+                 bm: int = 128, group=None, pipeline_stages: int = 1,
+                 chunk_comm: str = "ppermute",
                  mem_caps: Optional[np.ndarray] = None) -> MoEFFNSpec:
         """Static spec for ``moe_ffn`` (one MoE layer on this group).
+        ``group`` is the :class:`~repro_torch.sharding.MeshInfo` of the
+        ranks (None: one device), whose grid must be the engine's;
+        ``pipeline_stages`` > 1 runs the destination-chunked path, each
+        stage's collective ``chunk_comm`` ('ppermute' | 'a2a').
         ``mem_caps`` (f32[G]) are per-device token caps the layer passes to
         the scheduler, typically ``memory_plan(...).token_caps``."""
+        if group is not None and (group.data, group.model) != self.grid:
+            raise ConfigError(
+                f"a {group.data} x {group.model} group of ranks cannot run "
+                f"an engine built for a {self.grid[0]} x {self.grid[1]} "
+                f"grid")
+        if chunk_comm not in D.CHUNK_COMMS:
+            raise ConfigError(f"chunk_comm={chunk_comm!r} is not a "
+                              f"registered option; choose one of: "
+                              f"{', '.join(D.CHUNK_COMMS)}")
         return MoEFFNSpec(
             statics=self.dispatch_statics(tokens_per_device, top_k,
                                           capacity_factor, bm),
             scheduler=self.scheduler, top_k=top_k, activation=activation,
             mem_caps=None if mem_caps is None else torch.as_tensor(
-                np.asarray(mem_caps, np.float32), device=self.device))
+                np.asarray(mem_caps, np.float32), device=self.device),
+            group=group, pipeline_stages=int(pipeline_stages),
+            chunk_comm=chunk_comm)
 
     def __repr__(self) -> str:
         r, c = self.grid

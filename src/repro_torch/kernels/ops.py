@@ -2,11 +2,13 @@
 
 The tensor's device picks the implementation, never a fallback: a CUDA
 tensor launches the hand-written kernel (which raises if it cannot build or
-launch), a CPU tensor runs the plain PyTorch version in ``ref``.  ``wkv6``
+launch), a CPU tensor runs the plain PyTorch version in ``ref`` (K1's row by row,
+``rowwise``, so that a row's output is independent of its neighbours there
+as on the card).  ``wkv6``
 with a state is K3s on a CUDA tensor (the reference's decode path has no
-Pallas kernel).  The gradient of ``grouped_ffn_flat`` is K1b and that of
-``wkv6`` K3b on a CUDA tensor, and autograd of the plain version on a CPU
-tensor.
+Pallas kernel).  The gradient of ``grouped_ffn_flat`` is K1b on a CUDA
+tensor and K1b's plain version on a CPU tensor; that of ``wkv6`` is K3b on
+a CUDA tensor and autograd of the plain recurrence on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -19,8 +21,8 @@ from .grouped_matmul import GroupedFFNFlat, grouped_ffn_cuda
 from .sched import schedule_cuda
 from .wkv6_chunk import WKV6, wkv6_cuda, wkv6_state_cuda
 
-__all__ = ["grouped_ffn", "grouped_ffn_flat", "schedule", "tile_group_ids",
-           "wkv6"]
+__all__ = ["grouped_ffn", "grouped_ffn_flat", "grouped_ffn_flat_chunked",
+           "schedule", "tile_group_ids", "wkv6"]
 
 
 def tile_group_ids(group_start: torch.Tensor, n: int, bm: int,
@@ -55,12 +57,54 @@ def grouped_ffn_flat(
         raise ValueError(f"flat buffer of {n} rows is not a multiple of "
                          f"bm={bm}")
     if x.device.type == "cpu":
-        return ref.grouped_ffn_flat_ref(x, group_start, group_end, w_gate,
-                                        w_up, w_down, activation)
+        return _PlainFFNFlat.apply(x, group_start, group_end, w_gate, w_up,
+                                   w_down, activation)
     tile_gid = tile_group_ids(group_start, n, bm, w_gate.shape[0])
     return GroupedFFNFlat.apply(x, tile_gid, group_start.to(torch.int32),
                                 group_end.to(torch.int32), w_gate, w_up,
                                 w_down, activation, bm)
+
+
+class _PlainFFNFlat(torch.autograd.Function):
+    """The CPU's K1 and K1b, as ``GroupedFFNFlat`` is the card's: the plain
+    forward row by row, the plain backward (K1b's formulas) group by
+    group."""
+
+    @staticmethod
+    def forward(ctx, x, group_start, group_end, w_gate, w_up, w_down,
+                activation):
+        ctx.save_for_backward(x, group_start, group_end, w_gate, w_up,
+                              w_down)
+        ctx.activation = activation
+        return ref.grouped_ffn_flat_ref(x, group_start, group_end, w_gate,
+                                        w_up, w_down, activation,
+                                        rowwise=True)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, gs, ge, wg, wu, wd = ctx.saved_tensors
+        dx, dwg, dwu, dwd = ref.grouped_ffn_flat_bwd_ref(
+            x, gs, ge, wg, wu, wd, dout, ctx.activation)
+        return dx, None, None, dwg, dwu, dwd, None
+
+
+def grouped_ffn_flat_chunked(
+    x_chunks,                    # sequence of [N_c, H] chunk sub-buffers
+    group_starts: torch.Tensor,  # int[n, S] chunk-relative, bm-aligned
+    group_ends: torch.Tensor,    # int[n, S]
+    w_gate: torch.Tensor,
+    w_up: torch.Tensor,
+    w_down: torch.Tensor,
+    activation: str = "swiglu",
+    bm: int = 128,
+) -> tuple:
+    """The pipelined path's entry: :func:`grouped_ffn_flat` on each chunk
+    with that chunk's group ranges, K1 once a chunk on a CUDA tensor (K1b
+    once a chunk in the backward).  Each output chunk depends only on its
+    input chunk."""
+    return tuple(grouped_ffn_flat(xc, group_starts[c], group_ends[c], w_gate,
+                                  w_up, w_down, activation=activation, bm=bm)
+                 for c, xc in enumerate(x_chunks))
 
 
 def grouped_ffn(

@@ -77,19 +77,53 @@ def grouped_ffn_flat_ref(
     w_up: torch.Tensor,         # [S, H, F]
     w_down: torch.Tensor,       # [S, F, H]
     activation: str = "swiglu",
+    rowwise: bool = False,
 ) -> torch.Tensor:
     """Flat-layout FFN: rows outside [start, end) of every group are zeros.
 
     Group by group: the rows [start_g, end_g) go through group g's weights,
     so the work is O(rows in groups · H · F), not O(N · S · H · F) as in the
     dense reference oracle (the same function).  In float32, output in x's
-    type.  Autograd differentiates it on the CPU training path."""
+    type.  Autograd differentiates it on the CPU training path.
+
+    ``rowwise`` computes every row on its own (``_rowwise_ffn``): a row's
+    output then does not depend on how many rows share its group, as K1's
+    does not depend on its tile, so the pipelined dispatch, which splits a
+    group's rows over chunks, gives the monolithic path's outputs bit for
+    bit.  A whole group's product in one call lets the CPU's matrix
+    library block the rows, and the rounding, by the group's size."""
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for g, s, e in _groups(group_start, group_end):
         xg = x[s:e].float()
-        out[s:e] = _act(xg @ w_gate[g].float(), xg @ w_up[g].float(),
-                        activation) @ w_down[g].float()
+        wg, wu, wd = w_gate[g].float(), w_up[g].float(), w_down[g].float()
+        if rowwise:
+            out[s:e] = _rowwise_ffn(xg, wg, wu, wd, activation)
+        else:
+            out[s:e] = _act(xg @ wg, xg @ wu, activation) @ wd
     return out.to(x.dtype)
+
+
+_ROW_ALIGN = 64   # elements: a multiple of every CPU vector loop's stride
+
+
+def _rowwise_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [M, K] @ w [K, N] as M one-row products."""
+    return torch.bmm(x[:, None, :], w.expand(x.shape[0], -1, -1))[:, 0]
+
+
+def _rowwise_ffn(x, w_gate, w_up, w_down, activation: str) -> torch.Tensor:
+    """The gated FFN of rows x [M, H], each row on its own: one-row
+    products, and F padded with zero columns (zero rows of w_down, whose
+    activations are 0) to a multiple of ``_ROW_ALIGN``, so that every
+    element of the activation starts at the same place in PyTorch's vector
+    loops whatever M is (a loop's scalar tail rounds its exp otherwise)."""
+    pad = (-w_gate.shape[1]) % _ROW_ALIGN
+    if pad:
+        w_gate = torch.nn.functional.pad(w_gate, (0, pad))
+        w_up = torch.nn.functional.pad(w_up, (0, pad))
+        w_down = torch.nn.functional.pad(w_down, (0, 0, 0, pad))
+    h = _act(_rowwise_mm(x, w_gate), _rowwise_mm(x, w_up), activation)
+    return _rowwise_mm(h, w_down)
 
 
 def _act_and_grad(g: torch.Tensor, activation: str):

@@ -1,6 +1,7 @@
-"""Training driver on one device (twin of the single-device branch of
-``repro.launch.train``): synthetic learnable data, real MicroEP scheduling
-per micro-batch in every MoE layer, AdamW with a warmup-cosine schedule.
+"""Training launcher (twin of ``repro.launch.train``): synthetic learnable
+data, real MicroEP scheduling per micro-batch in every MoE layer, AdamW
+with a warmup-cosine schedule, on one device or on a (data × model) group
+of ranks.
 Dense and MoE global-attention decoders, MoE with any expert tensor
 parallelism (``--etp``), and RWKV-6 decoders (K3 forward, K3b backward).
 
@@ -20,14 +21,20 @@ parallelism (``--etp``), and RWKV-6 decoders (K3 forward, K3b backward).
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
       --smoke --device cpu --steps 12 --batch 4 --seq 16 \\
       --telemetry-record --trace-out /tmp/load.npz --prewarm --replication
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
+      --smoke --device cpu --data-axis 2 --model-axis 2 --backend gloo \\
+      --steps 4 --batch 8 --seq 16
 
 Runs on the CUDA device unless ``--device cpu`` is given; f32 weights,
 random from ``--seed``, drawn on the device.  ``--remat`` rematerialises
 every block in the backward (off by default, as the reference's
-single-device ``RuntimeConfig(remat=False)``; the reference's single-device
-branch drops the flag, this driver honours it).  ``--ckpt-dir`` saves the
-trained model's reference tree (``decoder.reference_tree``) at the end in
-the reference's checkpoint files, with {"arch": the config's name}.
+``RuntimeConfig(remat=False)`` for training).  The engine flags are
+``RuntimeConfig``'s (``--placement``, ``--mode``, ``--capacity-factor``,
+``--pipeline-stages``, ``--chunk-comm``, ``--memory``, ...); they steer the
+group's MoE layers, and one device refuses them (apart from ``--remat``).
+``--ckpt-dir`` saves the trained model's reference tree
+(``decoder.reference_tree``) at the end in the reference's checkpoint
+files, with {"arch": the config's name}.
 
 Telemetry and replication (MoE configs), as the reference's single-device
 branch runs them: ``--telemetry-record`` / ``--trace-out`` record each
@@ -37,14 +44,28 @@ a step) into a load trace, saved at the end; ``--prewarm`` fits the
 writes ``ReplacementPlanner.warm_start_x(solver="jacobi")`` into every MoE
 layer's solver state before the next step; ``--replication`` runs the
 replica-topology controller in shadow mode on the one-device placement
-(it plans and prices, nothing migrates).  The mesh and multi-host flags of
-the reference belong to paths not ported yet, and are refused with an
-error.
+(it plans and prices, nothing migrates).
+
+``--data-axis D --model-axis M`` trains on a group of D × M ranks
+(``launch.runtime``): this host spawns them (``launch.mesh.spawn_group``),
+or, with ``--coordinator HOST:PORT --num-hosts D·M --host-id i``, this
+process is rank i.  ``--backend`` picks torch.distributed's backend:
+``nccl`` needs a card for each rank of a host, ``gloo`` runs on the CPU or
+lets the ranks share cards.  Every rank draws its share of the same seeded
+model and reads the same data stream; rank 0 logs.  ``--report DIR``
+writes each rank's JSON record there (losses, kernel launches, peak
+memory, a digest of its canonical experts after every step).  The
+telemetry and replication flags run on one device only, and
+``--production-mesh`` (256 chips) is refused.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import json
+import os
+import time
 
 import numpy as np
 import torch
@@ -53,7 +74,7 @@ from ..checkpoint import save_checkpoint
 from ..configs import get_config
 from ..core.placement import vanilla_placement
 from ..data.synthetic import SyntheticLM
-from ..engine import ReplicationConfig, TelemetryConfig
+from ..engine import ReplicationConfig, RuntimeConfig, TelemetryConfig
 from ..models import decoder as dec
 from ..optim.adamw import AdamWConfig
 from ..optim.schedule import warmup_cosine
@@ -62,15 +83,49 @@ from ..telemetry import (LoadTraceRecorder, ReplacementPlanner,
                          predictor_from_config, prewarm_solver_states)
 from ..train.loop import init_train_state, make_train_step
 from ..train.metrics import MetricLogger
+from . import mesh as M
+from . import runtime as R
+from .check_train import count_plain_calls
 
 
-def _refuse_unported(ap: argparse.ArgumentParser, args) -> None:
-    if args.data_axis > 0 or args.model_axis != 1 or args.production_mesh:
-        ap.error("--data-axis/--model-axis/--production-mesh: training on a "
-                 "mesh of GPUs is not ported yet (ROADMAP.md, Queue 1)")
-    if args.num_hosts != 1 or args.coordinator or args.host_id:
-        ap.error("--coordinator/--num-hosts/--host-id: multi-host training "
-                 "is not ported yet (ROADMAP.md, Queue 1)")
+def _engine_flags_set(args) -> list:
+    """The ``RuntimeConfig`` flags given other than their defaults, apart
+    from ``--remat`` and ``--dtype``, which one device reads too."""
+    ap = argparse.ArgumentParser()
+    RuntimeConfig.add_cli_args(ap)
+    default = vars(ap.parse_args([]))
+    return sorted("--" + k.replace("_", "-") for k, v in default.items()
+                  if k not in ("remat", "dtype") and getattr(args, k) != v)
+
+
+def _check_args(ap: argparse.ArgumentParser, args, telemetry,
+                replication) -> None:
+    if args.production_mesh:
+        ap.error("--production-mesh: the reference's 256-chip mesh is not "
+                 "ported yet (ROADMAP.md, Queue 1)")
+    err = M.check_distributed_args(args)
+    if err:
+        ap.error(err)
+    if args.data_axis == 0:
+        if args.model_axis != 1 or args.num_hosts != 1:
+            ap.error("--model-axis/--num-hosts need --data-axis: a group of "
+                     "ranks has data-axis rows")
+        if args.backend is not None:
+            ap.error("--backend needs --data-axis: one device runs no "
+                     "collective")
+        engine = _engine_flags_set(args)
+        if engine:
+            ap.error(f"{', '.join(engine)} need --data-axis: the engine "
+                     f"flags steer a group's MoE layers, and one device "
+                     f"runs the fixed one-device group (capacity factor 2, "
+                     f"no pipeline, no MemFine)")
+    elif telemetry.enabled or replication.enabled:
+        ap.error("--telemetry-*/--prewarm/--replication run on one device "
+                 "only; on a group they are not ported yet (ROADMAP.md, "
+                 "Queue 1)")
+    if args.dtype != "float32":
+        ap.error(f"--dtype {args.dtype}: training runs in float32 only (K1b "
+                 f"takes float32)")
 
 
 def main(argv=None) -> int:
@@ -92,24 +147,22 @@ def main(argv=None) -> int:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--csv", default=None)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--remat", action=argparse.BooleanOptionalAction,
-                    default=False,
-                    help="rematerialise every block in the backward")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="save the trained parameters here at the end")
-    g = ap.add_argument_group("not ported yet (refused)")
-    g.add_argument("--data-axis", type=int, default=0)
-    g.add_argument("--model-axis", type=int, default=1)
-    g.add_argument("--production-mesh", action="store_true")
-    g.add_argument("--coordinator", default=None)
-    g.add_argument("--num-hosts", type=int, default=1)
-    g.add_argument("--host-id", type=int, default=0)
+                    help="save the trained parameters here at the end (one "
+                         "device)")
+    ap.add_argument("--report", default=None, metavar="DIR",
+                    help="on a group: write each rank's JSON record here")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="refused: the reference's 256-chip mesh")
+    RuntimeConfig.add_cli_args(ap)
+    M.add_distributed_cli_args(ap)
     TelemetryConfig.add_cli_args(ap)
     ReplicationConfig.add_cli_args(ap)
     args = ap.parse_args(argv)
-    _refuse_unported(ap, args)
     telemetry = TelemetryConfig.from_cli_args(args)
     replication = ReplicationConfig.from_cli_args(args)
+    _check_args(ap, args, telemetry, replication)
+    run_cfg = RuntimeConfig.from_cli_args(args)
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -118,6 +171,8 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, etp=args.etp)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    if args.data_axis > 0:
+        return _train_group(args, cfg, run_cfg)
     # telemetry needs the per-step expert-load vector out of the step;
     # dense and RWKV-6 decoders have nothing to record
     want_load = cfg.moe and (telemetry.record or telemetry.prewarm
@@ -188,6 +243,96 @@ def main(argv=None) -> int:
     last = logger.history[-1]["loss"]
     print(f"arch={cfg.name} device={ts.model.device} loss {first:.4f} -> "
           f"{last:.4f} ({'improved' if last < first else 'NO IMPROVEMENT'})")
+    return 0
+
+
+def _digest(tensors) -> list:
+    """Each f32 tensor's bit patterns summed as int64: equal tensors give
+    equal digests."""
+    return [int(t.contiguous().view(torch.int32).sum(dtype=torch.int64))
+            for t in tensors]
+
+
+def _group_rank(mi, device, args, cfg, run_cfg) -> dict:
+    """One rank's training loop on the group."""
+    from ..kernels.grouped_matmul import (grouped_ffn_flat_bwd_cuda,
+                                          grouped_ffn_flat_cuda)
+    from ..kernels.sched import schedule_cuda
+    from ..moe.comm import gather_counts
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+    dr = R.build_runtime(cfg, mi, run_cfg, device=device)
+    ts = dr.init_train_state(seed=args.seed)
+    step = R.make_train_fn(
+        dr, n_micro=args.n_micro, opt_cfg=AdamWConfig(lr=args.lr),
+        lr_fn=lambda s: warmup_cosine(s, args.lr, warmup=20,
+                                      total=args.steps))
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq, batch=args.batch,
+                       noise=0.05, n_maps=4, seed=args.seed + 1)
+    kernels = (("K1", grouped_ffn_flat_cuda), ("K1b", grouped_ffn_flat_bwd_cuda),
+               ("K4", schedule_cuda))
+    for _, fn in kernels:
+        fn.launches = 0                 # just before the main path
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    record = {"rank": mi.index, "row": mi.row, "col": mi.col, "steps": []}
+    logger = (MetricLogger(csv_path=args.csv, print_every=10)
+              if mi.index == 0 else contextlib.nullcontext())
+    with logger, count_plain_calls() as plain:
+        for i, batch in zip(range(args.steps), data):
+            t0 = time.perf_counter()
+            ts, m = step(ts, batch)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            digest = _digest(t for _, t in sorted((ts.canonical or {}).items()))
+            # the rows of a column must hold the same canonical experts
+            same_rows = True
+            if mi.data > 1 and digest:
+                every = gather_counts(torch.tensor(digest, device=device),
+                                      mi.col_pg)
+                same_rows = bool((every == every[:, :1]).all())
+            if mi.index == 0:
+                logger.log(i, m)
+            record["steps"].append({
+                "wall_s": wall, "same_rows": same_rows, "digest": digest,
+                **{k: float(v) for k, v in m.items()}})
+    record["launches"] = {name: fn.launches for name, fn in kernels}
+    record["plain"] = dict(plain)
+    if device.type == "cuda":
+        record["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    if args.report:
+        os.makedirs(args.report, exist_ok=True)
+        with open(os.path.join(args.report, f"rank{mi.index}.json"),
+                  "w") as f:
+            json.dump(record, f)
+    if mi.index == 0:
+        first, last = (record["steps"][0]["loss"],
+                       record["steps"][-1]["loss"])
+        print(f"arch={cfg.name} group={mi.data}x{mi.model} device={device} "
+              f"loss {first:.4f} -> {last:.4f} "
+              f"({'improved' if last < first else 'NO IMPROVEMENT'})")
+    if not all(st["same_rows"] for st in record["steps"]):
+        raise RuntimeError(f"rank {mi.index}: the rows of column {mi.col} "
+                           f"hold different canonical experts")
+    return record
+
+
+def _train_group(args, cfg, run_cfg) -> int:
+    backend = args.backend or M.default_backend(args.device)
+    world = args.data_axis * args.model_axis
+    if args.num_hosts == 1:
+        M.spawn_group(_group_rank, (args, cfg, run_cfg), args.data_axis,
+                      args.model_axis, backend=backend, device=args.device)
+        return 0
+    mi, dev = M.init_rank(args.host_id, world, f"tcp://{args.coordinator}",
+                          backend, args.device, args.data_axis,
+                          args.model_axis, local_rank=0, local_ranks=1)
+    try:
+        _group_rank(mi, dev, args, cfg, run_cfg)
+    finally:
+        torch.distributed.destroy_process_group()
     return 0
 
 

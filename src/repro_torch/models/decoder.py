@@ -3,7 +3,9 @@ full-sequence forward and the training loss of global-attention decoders,
 dense or MicroEP MoE, and of RWKV-6 decoders.
 
 The MoE dispatch runs the full MicroEP machinery on the degenerate
-single-device group (G=1, ``local_moe_apply``): top-k gating, counts, the
+single-device group (G=1, ``local_moe_apply``), or, given a
+:class:`Runtime` (``forward``'s ``rt``), the group
+runtime's ``moe_apply`` across a group of ranks: top-k gating, counts, the
 warm-started LP water-fill, rounding, Algorithm 1 routing, packed dispatch,
 the grouped FFN (K1 on a CUDA device) and combine, in every MoE layer of
 every decode step and of every micro-batch of the full-sequence forward;
@@ -33,8 +35,9 @@ graph, and training turns them on with ``model.requires_grad_(True)``.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -57,11 +60,12 @@ from .layers.rwkv6 import (ChannelMix, RWKVState, TimeMix, init_rwkv6,
                            init_rwkv6_channel)
 
 __all__ = ["require_device", "check_servable", "check_forward",
-           "check_trainable", "Decoder", "Metrics", "init_params",
+           "check_trainable", "Runtime", "Decoder", "Metrics", "init_params",
            "load_reference_params", "reference_tree", "forward", "lm_loss",
            "lm_loss_chunked", "loss_fn", "init_solver_states",
            "init_decode_state", "decode_step", "reset_decode_slots",
-           "expand_router_etp", "local_moe_apply", "n_moe_layers"]
+           "expand_router_etp", "MOE_BM", "make_moe_apply", "local_moe_apply",
+           "n_moe_layers"]
 
 
 def require_device(device) -> torch.device:
@@ -73,6 +77,22 @@ def require_device(device) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain CPU path explicitly")
     return device
+
+
+@dataclasses.dataclass(frozen=True)
+class Runtime:
+    """How the decoder's MoE layers run (twin of the reference's
+    ``Runtime``).
+
+    moe_apply: (moe, x2d, solver_state, valid=None) -> (out2d, MoEMetrics,
+      new_state), one MoE layer on this rank's rows [T, H]; ``valid`` is an
+      optional bool[T] row mask.  None: the single-device group
+      (:func:`local_moe_apply`).  ``launch.runtime.build_runtime`` installs
+      the group's (:func:`make_moe_apply` on the group's engine): its
+      metrics are the rank's own, and the group runtime's step functions
+      average them over the group."""
+
+    moe_apply: Optional[Callable] = None
 
 
 def _is_rwkv(cfg: ArchConfig) -> bool:
@@ -150,12 +170,17 @@ def _etp(cfg: ArchConfig) -> int:
 class MoE(nn.Module):
     """Router [H, E] and the canonical weights of the E·etp virtual experts,
     [E·etp, H, F] / [E·etp, F, H] with F = moe_d_ff / etp: virtual expert
-    e·etp + j is shard j of expert e."""
+    e·etp + j is shard j of expert e.  On a rank of a group the expert
+    tensors hold ``expert_rows`` rows instead: the rank's working slots or
+    its canonical experts."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, device="cuda",
+                 expert_rows: Optional[int] = None):
         super().__init__()
         etp = _etp(cfg)
         e, h, f = cfg.num_experts * etp, cfg.d_model, cfg.moe_d_ff // etp
+        if expert_rows is not None:
+            e = expert_rows
 
         def p(*shape):
             return nn.Parameter(torch.zeros(*shape, device=device),
@@ -174,37 +199,46 @@ class Block(nn.Module):
     """A global-attention block: attention, then a dense FFN (``ffn``) or
     an MoE (``moe``)."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, device="cuda",
+                 expert_rows: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
         self.ln1 = Norm(cfg.d_model, cfg.norm, device=device)
         self.attn = Attention(_attn_cfg(cfg), device=device)
         self.ln2 = Norm(cfg.d_model, cfg.norm, device=device)
         if cfg.moe:
-            self.moe = MoE(cfg, device=device)
+            self.moe = MoE(cfg, device=device, expert_rows=expert_rows)
         else:
             self.ffn = FFN(cfg.d_model, cfg.d_ff, cfg.ffn_kind, device=device)
 
     def mlp(self, h: torch.Tensor, state: Optional[SolverState] = None,
-            valid: Optional[torch.Tensor] = None):
+            valid: Optional[torch.Tensor] = None,
+            moe_apply: Optional[Callable] = None):
         """The block's FFN on ln2's output h [B, T, dm] -> (out [B, T, dm],
         MoEMetrics or None for a dense FFN, the MoE layer's new solver
-        state).  ``valid`` (bool[B]) keeps rows out of MoE routing."""
+        state).  ``valid`` (bool[B]) keeps rows out of MoE routing;
+        ``moe_apply`` (``Runtime.moe_apply``) replaces the single-device
+        group."""
         if not self.cfg.moe:
             return ffn(self.ffn, h, self.cfg.ffn_kind), None, state
         b, t, d = h.shape
         rows_valid = None if valid is None else valid.repeat_interleave(t)
-        h2d, metrics, state = local_moe_apply(
-            self.moe, h.reshape(b * t, d), self.cfg, state, valid=rows_valid)
+        if moe_apply is None:
+            moe_apply = _local_moe_apply(self.cfg, h.device)
+        h2d, metrics, state = moe_apply(self.moe, h.reshape(b * t, d), state,
+                                        valid=rows_valid)
         return h2d.reshape(b, t, d), metrics, state
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                state: Optional[SolverState] = None):
+                state: Optional[SolverState] = None,
+                moe_apply: Optional[Callable] = None,
+                valid: Optional[torch.Tensor] = None):
         """The full sequence: x [B, T, dm] -> (x [B, T, dm], MoEMetrics or
         None, the MoE layer's new solver state)."""
         x = x + attention(self.attn, _attn_cfg(self.cfg), self.ln1(x),
                           positions)
-        h, metrics, state = self.mlp(self.ln2(x), state)
+        h, metrics, state = self.mlp(self.ln2(x), state, valid=valid,
+                                     moe_apply=moe_apply)
         return x + h, metrics, state
 
 
@@ -235,9 +269,12 @@ class Decoder(nn.Module):
     embedding, one block per layer (:class:`Block` for attention,
     :class:`RWKVBlock` for RWKV-6), final norm and an untied head when the
     config has one.  Weights start at zero; fill them with
-    :func:`init_params` or :func:`load_reference_params`."""
+    :func:`init_params` or :func:`load_reference_params`.  ``expert_rows``
+    sizes a rank's MoE expert tensors (its working slots or canonical
+    experts) in place of all E·etp virtual experts."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, device="cuda",
+                 expert_rows: Optional[int] = None):
         super().__init__()
         check_forward(cfg)          # the decoders the port builds
         device = require_device(device)
@@ -245,9 +282,13 @@ class Decoder(nn.Module):
         self.embed = nn.Parameter(
             torch.zeros(cfg.vocab, cfg.d_model, device=device),
             requires_grad=False)
-        kind = RWKVBlock if _is_rwkv(cfg) else Block
-        self.blocks = nn.ModuleList(kind(cfg, device=device)
-                                    for _ in range(cfg.num_layers))
+        if _is_rwkv(cfg):
+            blocks = (RWKVBlock(cfg, device=device)
+                      for _ in range(cfg.num_layers))
+        else:
+            blocks = (Block(cfg, device=device, expert_rows=expert_rows)
+                      for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(blocks)
         self.final_norm = Norm(cfg.d_model, cfg.norm, device=device)
         self.head = None if cfg.tie_embeddings else nn.Parameter(
             torch.zeros(cfg.d_model, cfg.vocab, device=device),
@@ -258,16 +299,43 @@ class Decoder(nn.Module):
         return self.embed.device
 
 
-def _randn_(w: torch.Tensor, g: torch.Generator, scale: float) -> None:
-    w.copy_(torch.randn(w.shape, generator=g, device=w.device) * scale)
+def _randn_(w: torch.Tensor, g: torch.Generator, scale: float,
+            rows: Optional[torch.Tensor] = None,
+            shape: Optional[tuple] = None) -> None:
+    """Draw ``shape`` (default ``w``'s) and keep its ``rows`` (default
+    all) in ``w``: a rank keeps its share of a tensor drawn whole, so its
+    values are the whole model's."""
+    full = torch.randn(shape or w.shape, generator=g, device=w.device) * scale
+    w.copy_(full if rows is None else full[rows])
+
+
+def _expert_index(expert_rows, cfg: ArchConfig, device):
+    """int64 row indices into the E·etp canonical experts (-1 pads, the
+    empty slots of a budgeted placement, hold expert 0) or None."""
+    if expert_rows is None:
+        return None
+    idx = torch.as_tensor(np.asarray(expert_rows), dtype=torch.int64,
+                          device=device).clamp(min=0)
+    if idx.dim() != 1 or bool((idx >= cfg.num_experts * _etp(cfg)).any()):
+        raise ValueError(f"expert_rows {expert_rows} are not indices of the "
+                         f"{cfg.num_experts * _etp(cfg)} virtual experts")
+    return idx
 
 
 @torch.no_grad()
-def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> Decoder:
+def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
+                expert_rows=None) -> Decoder:
     """A decoder with random weights drawn on ``device`` from a
     ``torch.Generator`` seeded with ``seed``, scaled as the reference
-    initializes them (normal, fan-in scaled; norms at their identity)."""
-    model = Decoder(cfg, device=device)
+    initializes them (normal, fan-in scaled; norms at their identity).
+
+    ``expert_rows`` (int[n], indices of the E·etp virtual experts) keeps
+    only those rows of every MoE expert tensor, a rank's share: each tensor
+    is drawn whole, in the same order, and cut one at a time, so the kept
+    rows equal the whole model's bit for bit."""
+    rows = _expert_index(expert_rows, cfg, require_device(device))
+    model = Decoder(cfg, device=device,
+                    expert_rows=None if rows is None else len(rows))
     device = model.device
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -284,8 +352,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> Decoder:
             blk.ffn = init_ffn(dm, cfg.d_ff, cfg.ffn_kind, g, device=device)
             continue
         _randn_(blk.moe.router, g, dm ** -0.5)
+        e = cfg.num_experts * _etp(cfg)
         for w in (blk.moe.w_gate, blk.moe.w_up, blk.moe.w_down):
-            _randn_(w, g, sg)
+            _randn_(w, g, sg, rows, (e,) + tuple(w.shape[1:]))
     if model.head is not None:
         _randn_(model.head, g, dm ** -0.5)
     return model
@@ -312,8 +381,8 @@ def _map_tree(tree, fn):
 
 
 @torch.no_grad()
-def load_reference_params(params_np: dict, cfg: ArchConfig,
-                          device="cuda") -> Decoder:
+def load_reference_params(params_np: dict, cfg: ArchConfig, device="cuda",
+                          expert_rows=None) -> Decoder:
     """A decoder holding the reference model's weights.
 
     ``params_np`` is the reference parameter tree with numpy leaves (the
@@ -324,11 +393,16 @@ def load_reference_params(params_np: dict, cfg: ArchConfig,
     w_down)} (the E·etp virtual experts) or "ffn" = {"w_gate", "w_up",
     "w_down"}; an RWKV-6 block "ln1", "ln2", "time" (its "gn" a
     {"scale", "bias"} tree) and "chan".  A tree of another depth or a
-    leaf of another shape is refused."""
-    model = Decoder(cfg, device=device)
+    leaf of another shape is refused.  ``expert_rows`` keeps a rank's share
+    of every MoE expert tensor, as :func:`init_params`'s."""
+    rows = _expert_index(expert_rows, cfg, "cpu")
+    model = Decoder(cfg, device=device,
+                    expert_rows=None if rows is None else len(rows))
 
-    def put(dst: torch.Tensor, a) -> None:
+    def put(dst: torch.Tensor, a, keep=None) -> None:
         src = torch.tensor(np.asarray(a, dtype=np.float32))
+        if keep is not None:
+            src = src[keep]
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"reference leaf of shape {tuple(src.shape)} "
                              f"does not fit {tuple(dst.shape)}")
@@ -365,9 +439,9 @@ def load_reference_params(params_np: dict, cfg: ArchConfig,
             continue
         put(blk.moe.router, tree["moe"]["router"])
         wg, wu, wd = tree["moe"]["experts"]
-        put(blk.moe.w_gate, wg)
-        put(blk.moe.w_up, wu)
-        put(blk.moe.w_down, wd)
+        put(blk.moe.w_gate, wg, rows)
+        put(blk.moe.w_up, wu, rows)
+        put(blk.moe.w_down, wd, rows)
     if model.head is not None:
         put(model.head, params_np["head"])
     return model
@@ -475,7 +549,8 @@ def _w_out(model: Decoder) -> torch.Tensor:
 def forward(model: Decoder, batch: dict,
             solver_states: Optional[List[SolverState]] = None,
             last_only: bool = False, return_hidden: bool = False,
-            remat: bool = False):
+            remat: bool = False, rt: Optional[Runtime] = None,
+            valid: Optional[torch.Tensor] = None):
     """Full forward pass over ``batch`` {"tokens": int[B, T]} -> (logits
     [B, T, V], MoEMetrics summed over layers, new solver states), as the
     reference's ``forward``.
@@ -496,7 +571,10 @@ def forward(model: Decoder, batch: dict,
     takes the same warm start and makes the same schedule, and the
     gradients equal those without remat.  The launch counts then show the
     second run: K3, K4 and K1 twice a layer and micro-batch, K1b and K3b
-    once."""
+    once.
+
+    ``rt`` (:class:`Runtime`) runs the MoE layers on a group of ranks;
+    ``valid`` (bool[B]) keeps padding sequences out of MoE routing."""
     cfg = model.cfg
     check_forward(cfg)
     tokens = batch["tokens"]
@@ -518,9 +596,10 @@ def forward(model: Decoder, batch: dict,
         b, t = tokens.shape
         positions = torch.arange(t, device=x.device)[None].expand(b, t)
         new_states = []
+        moe_apply = None if rt is None else rt.moe_apply
         for i, blk in enumerate(model.blocks):
             st = None if solver_states is None else solver_states[i]
-            x, m, st = run(blk, x, positions, st)
+            x, m, st = run(blk, x, positions, st, moe_apply, valid)
             acc = _accum(acc, m)
             new_states.append(st)
         if not cfg.moe:
@@ -571,29 +650,41 @@ def lm_loss_chunked(x: torch.Tensor, w_out: torch.Tensor,
 def loss_fn(model: Decoder, batch: dict,
             solver_states: Optional[List[SolverState]] = None,
             aux_coeff: float = 1e-4, z_coeff: float = 1e-4,
-            remat: bool = False, with_expert_load: bool = False):
+            remat: bool = False, with_expert_load: bool = False,
+            rt: Optional[Runtime] = None,
+            valid: Optional[torch.Tensor] = None,
+            ce_weight: Optional[torch.Tensor] = None, group_size: int = 1):
     """Scalar training loss (CE + MoE aux) of ``batch`` {"tokens",
-    "labels": int[B, T]} -> (loss, Metrics, new solver states); ``remat``
-    as :func:`forward`'s.  ``with_expert_load`` appends the layer-summed
-    routed tokens per expert (f32[E·etp], ``MoEMetrics.expert_load``), as
-    the reference's does."""
+    "labels": int[B, T]} -> (loss, Metrics, new solver states); ``remat``,
+    ``rt`` and ``valid`` as :func:`forward`'s.  ``with_expert_load``
+    appends the layer-summed routed tokens per expert (f32[E·etp],
+    ``MoEMetrics.expert_load``), as the reference's does.
+
+    On a rank of a group, ``ce_weight`` (the rank's share of the global
+    batch's labels) weights the CE and the MoE terms and metrics are
+    divided by ``group_size``: the sums over the ranks are the group's
+    loss and metrics.  Both are exact no-ops on one device (1.0 and 1)."""
     cfg = model.cfg
     check_trainable(cfg)
     hidden, moe, new_states = forward(model, batch, solver_states,
-                                      return_hidden=True, remat=remat)
+                                      return_hidden=True, remat=remat, rt=rt,
+                                      valid=valid)
     ce = lm_loss_chunked(hidden, _w_out(model), batch["labels"])
-    loss = ce + aux_coeff * moe.aux_loss + z_coeff * moe.z_loss
-    metrics = Metrics(loss=loss, ce_loss=ce, aux_loss=moe.aux_loss,
-                      z_loss=moe.z_loss,
-                      balance=moe.balance / max(n_moe_layers(cfg), 1),
-                      overflow=moe.overflow)
+    if ce_weight is not None:
+        ce = ce * ce_weight
+    aux, z = moe.aux_loss / group_size, moe.z_loss / group_size
+    loss = ce + aux_coeff * aux + z_coeff * z
+    metrics = Metrics(loss=loss, ce_loss=ce, aux_loss=aux, z_loss=z,
+                      balance=moe.balance / (max(n_moe_layers(cfg), 1)
+                                             * group_size),
+                      overflow=moe.overflow / group_size)
     if with_expert_load:
         return loss, metrics, new_states, moe.expert_load
     return loss, metrics, new_states
 
 
 # --------------------------------------------------------------------------
-# the MoE block on the single-device MicroEP group
+# the MoE layer, on one device and on a group of ranks
 # --------------------------------------------------------------------------
 
 
@@ -617,29 +708,60 @@ def expand_router_etp(r: RouterOut, etp: int) -> RouterOut:
     return r._replace(expert_ids=ids, gate_w=gate_w)
 
 
+MOE_BM = 8    # the flat buffer's row tile, which K1 tiles with too, on one
+              # device and on a group of ranks
+
+
+def make_moe_apply(cfg: ArchConfig, engine: MicroEPEngine, group=None,
+                   capacity_factor: float = 2.0, pipeline_stages: int = 1,
+                   chunk_comm: str = "ppermute") -> Callable:
+    """One MoE layer of ``cfg`` on ``engine``'s group -> ``moe_apply(moe,
+    x2d, state, valid=None) -> (out [T, H], MoEMetrics, state)``: top-k
+    gating over the E experts, expanded to the E·etp virtual experts and
+    top_k·etp rows a token, and ``moe_ffn`` with the flat buffer laid out
+    in ``MOE_BM``-row tiles.  ``group`` is this rank's
+    :class:`~repro_torch.sharding.MeshInfo` (None: one device).  With the
+    engine's MemFine model installed (DESIGN.md §16), the memory plan's
+    chunk count widens the pipeline and its token caps constrain the
+    scheduler."""
+    etp = _etp(cfg)
+    top_k_eff = cfg.top_k * etp
+    act = _moe_activation(cfg)
+
+    def moe_apply(moe: MoE, x2d: torch.Tensor, state: Optional[SolverState],
+                  valid: Optional[torch.Tensor] = None):
+        t = int(x2d.shape[0])
+        stages, mem_caps = pipeline_stages, None
+        if engine.memory_model is not None:
+            plan = engine.memory_plan(t, top_k_eff)
+            stages = max(stages, plan.chunks)
+            mem_caps = np.asarray(plan.token_caps, np.float32)
+        spec = engine.moe_spec(
+            t, top_k_eff, activation=act, capacity_factor=capacity_factor,
+            bm=MOE_BM, group=group, pipeline_stages=stages,
+            chunk_comm=chunk_comm, mem_caps=mem_caps)
+        r = expand_router_etp(
+            top_k_gating(x2d, moe.router, cfg.top_k, valid=valid), etp)
+        return moe_ffn(spec, x2d, moe.router, moe.experts, state=state,
+                       router_out=r)
+
+    return moe_apply
+
+
 @functools.lru_cache(maxsize=32)
-def _local_moe_engine(num_virtual: int, device: torch.device
-                      ) -> MicroEPEngine:
-    """Degenerate single-device MicroEP group (G=1): all slots local."""
-    return MicroEPEngine.build(num_virtual, (1, 1), placement="vanilla",
-                               device=device)
+def _local_moe_apply(cfg: ArchConfig, device: torch.device) -> Callable:
+    """:func:`make_moe_apply` on the degenerate single-device MicroEP group
+    (G=1, every slot local)."""
+    return make_moe_apply(cfg, MicroEPEngine.build(
+        cfg.num_experts * _etp(cfg), (1, 1), placement="vanilla",
+        device=device))
 
 
 def local_moe_apply(moe: MoE, x2d: torch.Tensor, cfg: ArchConfig,
                     state: Optional[SolverState],
                     valid: Optional[torch.Tensor] = None):
-    """One MoE layer on the G=1 group -> (out [T, H], MoEMetrics, state):
-    top-k gating over the E experts, expanded to the E·etp virtual experts
-    and top_k·etp rows a token.  The flat buffer is laid out with bm=8, and
-    K1 tiles it with the same bm."""
-    etp = _etp(cfg)
-    spec = _local_moe_engine(cfg.num_experts * etp, x2d.device).moe_spec(
-        int(x2d.shape[0]), cfg.top_k * etp,
-        activation=_moe_activation(cfg), capacity_factor=2.0, bm=8)
-    r = top_k_gating(x2d, moe.router, cfg.top_k, valid=valid)
-    r = expand_router_etp(r, etp)
-    return moe_ffn(spec, x2d, moe.router, moe.experts, state=state,
-                   router_out=r)
+    """One MoE layer on the G=1 group -> (out [T, H], MoEMetrics, state)."""
+    return _local_moe_apply(cfg, x2d.device)(moe, x2d, state, valid=valid)
 
 
 def n_moe_layers(cfg: ArchConfig) -> int:

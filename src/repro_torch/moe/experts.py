@@ -1,7 +1,8 @@
 """Expert FFN parameters and grouped compute (twin of ``repro.moe.experts``).
 
 ``expert_ffn_flat`` consumes the dispatcher's flat slot-sorted buffer and
-calls K1 (or its plain version for a CPU tensor).
+calls K1 (or its plain version for a CPU tensor); ``expert_ffn_flat_chunked``
+does so once a chunk of the pipelined dispatch.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import torch
 
 from ..kernels import ops
 
-__all__ = ["ExpertParams", "expert_ffn_flat"]
+__all__ = ["ExpertParams", "expert_ffn_flat", "expert_ffn_flat_chunked"]
 
 
 class ExpertParams(NamedTuple):
@@ -31,6 +32,22 @@ def expert_ffn_flat(
     """``bm`` is the buffer's row-tile alignment (``DispatchStatics.bm``)."""
     return ops.grouped_ffn_flat(
         flat, group_start, group_end,
+        params.w_gate, params.w_up, params.w_down,
+        activation=activation, bm=bm,
+    )
+
+
+def expert_ffn_flat_chunked(
+    flat_chunks,                 # sequence of [N_c, H] chunk sub-buffers
+    group_starts: torch.Tensor,  # int[n, S] chunk-relative
+    group_ends: torch.Tensor,    # int[n, S]
+    params: ExpertParams,
+    activation: str,
+    bm: int,
+) -> tuple:
+    """Pipelined variant: one grouped-FFN call (K1) a dispatch chunk."""
+    return ops.grouped_ffn_flat_chunked(
+        flat_chunks, group_starts, group_ends,
         params.w_gate, params.w_up, params.w_down,
         activation=activation, bm=bm,
     )

@@ -19,7 +19,8 @@ import torch
 from ..core.scheduler import Scheduler
 from ..core.solver import SolverState
 from . import dispatch as D
-from .experts import ExpertParams, expert_ffn_flat
+from .comm import gather_counts
+from .experts import ExpertParams, expert_ffn_flat, expert_ffn_flat_chunked
 from .router import RouterOut, top_k_gating
 
 __all__ = ["MoEMetrics", "MoEFFNSpec", "moe_ffn"]
@@ -36,13 +37,24 @@ class MoEMetrics(NamedTuple):
 
 class MoEFFNSpec(NamedTuple):
     """Static configuration bundle for one MoE layer.  ``mem_caps`` (f32[G]
-    per-device token caps, or None) go to the scheduler on every call."""
+    per-device token caps, or None) go to the scheduler on every call.
+
+    group           — the :class:`MeshInfo` of the ranks (None: one device).
+    pipeline_stages — destination chunks of the dispatch pipeline (1 =
+                      monolithic; a count that does not divide the group
+                      falls back to the largest divisor below).
+    chunk_comm      — a stage's collective: 'ppermute' (an all-to-all per
+                      offset, one partner each way) or 'a2a' (one
+                      all-to-all over the stage's partners)."""
 
     statics: D.DispatchStatics
     scheduler: Scheduler
     top_k: int
     activation: str
     mem_caps: Optional[torch.Tensor] = None
+    group: Optional[object] = None
+    pipeline_stages: int = 1
+    chunk_comm: str = "ppermute"
 
 
 def moe_ffn(
@@ -67,16 +79,32 @@ def moe_ffn(
     rows = x.repeat_interleave(k, dim=0)
     cnt = torch.zeros(st.num_experts + 1, dtype=torch.int64,
                       device=x.device).scatter_add_(0, ex, torch.ones_like(ex))
-    input_eg = cnt[:st.num_experts, None]                 # [E, G=1]
+    mi = spec.group
+    pg = None if mi is None else mi.pg
+    input_eg = gather_counts(cnt[:st.num_experts], pg)     # [E, G]
 
     if state is not None:
         state = SolverState(x=state.x.detach())
     sched = spec.scheduler(input_eg, state, mem_caps=spec.mem_caps)
-    plan = D.make_plan(st, ex, sched.flow, 0)
-    flat = D.dispatch(st, plan, rows)
-    out_flat = expert_ffn_flat(flat, plan.group_start, plan.group_end,
-                               experts, spec.activation, bm=st.bm)
-    out_rows = D.combine(st, plan, out_flat)
+    my_index = 0 if pg is None else mi.index
+    n_stages = 1 if pg is None else D.effective_stages(spec.pipeline_stages,
+                                                       st.group_size)
+    if n_stages > 1:
+        plan = D.make_chunked_plan(st, ex, sched.flow, my_index, n_stages)
+        chain: list = []        # the layer's exchanges, in one order
+        chunks = D.dispatch_pipelined(st, plan, rows, pg, my_index,
+                                      spec.chunk_comm, chain)
+        out_chunks = expert_ffn_flat_chunked(
+            chunks, plan.group_start, plan.group_end, experts,
+            spec.activation, bm=st.bm)
+        out_rows = D.combine_pipelined(st, plan, out_chunks, pg, my_index,
+                                       spec.chunk_comm, chain)
+    else:
+        plan = D.make_plan(st, ex, sched.flow, my_index)
+        flat = D.dispatch(st, plan, rows, pg)
+        out_flat = expert_ffn_flat(flat, plan.group_start, plan.group_end,
+                                   experts, spec.activation, bm=st.bm)
+        out_rows = D.combine(st, plan, out_flat, pg)
     out = (out_rows.reshape(t, k, h) * r.gate_w[:, :, None].to(x.dtype)
            ).sum(1)
 

@@ -14,8 +14,8 @@ from typing import Dict, NamedTuple, Optional, Union
 
 import torch
 
-__all__ = ["AdamWConfig", "AdamWState", "adamw_init", "global_norm",
-           "adamw_update"]
+__all__ = ["AdamWConfig", "AdamWState", "adamw_init", "sum_squares",
+           "global_norm", "adamw_update"]
 
 Tree = Dict[str, torch.Tensor]
 
@@ -44,19 +44,27 @@ def adamw_init(master: Tree) -> AdamWState:
     return AdamWState(step=0, mu=zeros(), nu=zeros())
 
 
+def sum_squares(tree: Tree) -> torch.Tensor:
+    """The sum of squares of every leaf, in f32, leaf by leaf in order."""
+    return sum(torch.sum(torch.square(x.float())) for x in tree.values())
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree.values()))
+    return torch.sqrt(sum_squares(tree))
 
 
 @torch.no_grad()
 def adamw_update(grads: Tree, state: AdamWState, master: Tree,
                  cfg: AdamWConfig,
-                 lr: Optional[Union[float, torch.Tensor]] = None):
+                 lr: Optional[Union[float, torch.Tensor]] = None,
+                 gnorm: Optional[torch.Tensor] = None):
     """One AdamW step -> (master, new state, grad_norm).  ``master`` and the
-    state's moments are updated in place and returned."""
-    gnorm = global_norm(grads)
+    state's moments are updated in place and returned.  ``gnorm`` is the
+    norm to clip by when ``grads`` are one rank's share of a group's
+    (default: ``global_norm(grads)``)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                          max=1.0) if cfg.grad_clip > 0 else 1.0)
     step = state.step + 1

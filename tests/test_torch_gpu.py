@@ -4,7 +4,8 @@ on the same inputs, K1, K1b, K3 and K3s against their own arithmetic in
 plain PyTorch, K1b, K3, K3s and K3b against float64, the training step
 (MoE, expert tensor parallelism, dense and RWKV-6, also rematerialised)
 and the decode step (RWKV-6 and expert tensor parallelism) on the card
-against the CPU's plain path.
+against the CPU's plain path, and one MoE layer across a group of two
+ranks sharing the card under gloo.
 They skip without a CUDA device.  This file imports no JAX, so it also runs where JAX
 is not installed:
 
@@ -1179,3 +1180,20 @@ def test_cuda_replicated_placement_schedules_through_k4(loads):
     time_k4.check_engines(card, cpu, batches, False, "replicated")
     time_k4.check_engines(card, cpu, batches, True, "replicated")
     assert schedule_cuda.launches - before == 2 * len(batches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [(8, 2, 64, 96, 64), (16, 4, 128, 64, 32)],
+                         ids=["e8-k2", "e16-k4"])
+def test_cuda_group_layer_matches_monolithic_and_one_device(dims):
+    """A 1 × 2 group of ranks on the card (``check_group.layer_check``):
+    every pipeline variant equal to the monolithic path and to the
+    one-device layer bit for bit, identical flows, K4 once and K1 once a
+    chunk a call, no overflow, no plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 and K4 are CUDA kernels)")
+    from repro_torch.launch.check_group import layer_check
+    from repro_torch.launch.mesh import spawn_group
+    for rec in spawn_group(layer_check, (7, dims), 1, 2, backend="gloo",
+                           device="cuda"):
+        assert rec["g1_equal"] and rec["flow_identical"]

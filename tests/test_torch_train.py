@@ -212,17 +212,19 @@ def test_train_cli_runs_dense_and_etp_on_cpu(arch, flags, capsys):
     assert "nan" not in out.split("device=cpu loss")[1]
 
 
-@pytest.mark.parametrize("flags", [["--data-axis", "2"],
-                                   ["--telemetry-record", "--data-axis", "2"],
-                                   ["--num-hosts", "2"],
-                                   ["--replication", "--num-hosts", "2"]],
-                         ids=["mesh", "telemetry", "multi-host",
-                              "replication"])
-def test_train_cli_refuses_unported_flags(flags, capsys):
-    """The mesh and multi-host flags stay refused, with or without the
-    telemetry and replication flags (which one device now takes:
-    ``tests/test_torch_telemetry.py``)."""
+@pytest.mark.parametrize("flags,message", [
+    (["--production-mesh"], "not ported yet"),
+    (["--telemetry-record", "--data-axis", "2"], "not ported yet"),
+    (["--num-hosts", "2"], "--num-hosts > 1 needs --coordinator"),
+    (["--replication", "--data-axis", "2"], "not ported yet")],
+    ids=["mesh", "telemetry", "multi-host", "replication"])
+def test_train_cli_refuses_unported_flags(flags, message, capsys):
+    """What the launcher still refuses: the reference's production mesh,
+    the telemetry and replication flags on a group of ranks (one device
+    takes them: ``tests/test_torch_telemetry.py``), and a multi-host group
+    without its coordinator (the group itself trains:
+    ``tests/test_torch_runtime.py``)."""
     with pytest.raises(SystemExit):
         train_cli.main(["--arch", "olmoe-1b-7b", "--smoke", "--device",
                         "cpu", *flags])
-    assert "not ported yet" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
