@@ -258,7 +258,42 @@ Phases, in order; any failure raises and exits nonzero:
      canonical experts after every step.  Each rank's peak memory and the
      times are printed; four processes time-slicing one card through host
      memory say nothing of speed.
-Phases 17-23 print each part's wall time, peak memory and kernel launches.
+ 24. serving on the group, paid migrations and disaggregated fleets,
+     olmoe-1b-7b (``launch/check_group.py``'s ``serve_references`` and
+     ``serve_checks``): (c) served disaggregated on this process at full
+     width and depth (4 prefill and 4 decode slots, handoff depth 2, 6
+     Poisson requests at rate 0.5): every request served once with all its
+     tokens, as many handoffs as requests, the buffer within its depth,
+     handoff bytes ``decode_slot_bytes`` a transfer, K1 and K4 once a layer
+     a fleet step and no plain version; paper-gpt-32x1.3b smoke
+     disaggregated on the card and on the CPU from one set of weights:
+     equal tokens and step-clock fields.  Then the one-device references
+     (a decode step of 8 layers from the caches of 3 earlier steps, and
+     (d)'s run at 4 layers), freed, and four ranks sharing the card under
+     gloo: (a) the group session (``ServingSession(mesh=...)``, latin, 2
+     replicas, capacity factor 4 so that no row of a decode step
+     overflows, 8 slots, 2 a rank) at full width and 8 of 16 layers (6.4
+     GB canonical, 6.4 GB working and ~1.4 GB dense a rank; 16 layers need
+     ~27.7 GB a rank, ~111 GB in all) serving 4 Poisson requests at rate
+     0.25 (prompts up to 12 tokens, 16 generated): the one-device step's
+     logits from its states within ``SERVE_LOGITS_REL`` of their largest;
+     once without and once with the reactive hook set to fire (check every
+     12 steps, threshold 1.0): at least one migration paid, the tokens of
+     the two runs equal bit for bit, after every migration each rank's
+     working slots equal to the new table's canonical experts (row
+     digests), ``migrated_bytes`` the fired tables' priced traffic, K4 and
+     K1 once a layer a decode step on every rank, no plain version, each
+     migration's suspension printed; (d) the disaggregated run of (c)'s
+     requests at 4 layers on the group (3.2 GB canonical and 2 × 3.2 GB of
+     working slots a rank): tokens and step-clock fields equal to the
+     one-device run's; then (b) ``launch/train.py``'s ``main`` as phase 23
+     (c) with ``--telemetry-record --trace-out --prewarm --replication``
+     (check every 2, threshold 1.0, gate 0): at least one topology
+     migration, every rank's trace rows and controller decisions equal,
+     identical canonical rows after every step, K1, K1b and K4 16 times a
+     rank, the losses and gradient norms within phase 23 (c)'s limits of
+     its run without the flags.  The kernels line counts these launches in.
+Phases 17-24 print each part's wall time, peak memory and kernel launches.
 The last two lines are the kernels' JSON record and the result object.
 """
 from __future__ import annotations
@@ -2036,8 +2071,9 @@ def group_references(cfg, device, ref_dir: pathlib.Path) -> tuple:
     return fwd_loss, train
 
 
-def phase_group(cfg, device, tmp: pathlib.Path) -> None:
-    """23: (a), (b), (d) on four ranks, then (c) through ``launch/train``."""
+def phase_group(cfg, device, tmp: pathlib.Path) -> list:
+    """23: (a), (b), (d) on four ranks, then (c) through ``launch/train``
+    -> (c)'s rank records."""
     from repro_torch.launch import check_group
     from repro_torch.launch import train as train_cli
     from repro_torch.launch.mesh import spawn_group
@@ -2121,6 +2157,190 @@ def phase_group(cfg, device, tmp: pathlib.Path) -> None:
     for (k, v), limit in zip(gaps.items(), (STEP0_CE, STEP0_LOSS, GNORM_REL,
                                             LATER_LOSS)):
         require(v < limit, f"(c) {k} off by {v:.3e} (limit {limit})")
+    return recs
+
+
+# ------------ phase 24: serving on a group, paid migrations, disaggregation
+
+# (a) against one device: each rank's logits of one decode step within
+# SERVE_LOGITS_REL of the one-device rows' largest magnitude (phase 23 (b)
+# read 2.1e-6 to 2.5e-6 for the forward)
+SERVE_LOGITS_REL = 1e-5
+
+
+def phase_disagg_one(cfg, device) -> int:
+    """24 (c): ``cfg`` served disaggregated on the card -> K1's launches
+    (K4's are equal)."""
+    from repro_torch.engine import DisaggConfig, ServeConfig
+    from repro_torch.kernels.grouped_matmul import grouped_ffn_flat_cuda
+    from repro_torch.kernels.sched import schedule_cuda
+    from repro_torch.launch.check_group import DISAGG, SERVE, serve_requests
+    from repro_torch.launch.check_train import count_plain_calls
+    from repro_torch.models import decoder as dec
+    from repro_torch.serve import ServingSession
+    reqs = serve_requests(cfg, disagg=True)
+    sess = ServingSession(cfg, ServeConfig(**SERVE), seed=0, device=device,
+                          disagg=DisaggConfig(**DISAGG))
+    zero_counts(grouped_ffn_flat_cuda, schedule_cuda)   # the main path
+    with count_plain_calls() as plain:
+        t0 = time.perf_counter()
+        rep = sess.run(reqs)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    k1, k4 = grouped_ffn_flat_cuda.launches, schedule_cuda.launches
+    d = rep.disagg
+    slot = dec.decode_slot_bytes(dec.init_decode_state(
+        cfg, 1, SERVE["max_seq"], device=device))
+    ids = [r.req_id for r in rep.records]
+    print(f"  {len(ids)} requests in {rep.steps} steps ({rep.decode_steps} "
+          f"ticks stepped), {wall:.2f} s; {d['transferred']} handoffs of "
+          f"{slot} B, buffer peak {d['handoff_peak']}/{d['handoff_depth']}, "
+          f"{d['handoff_bytes']} B staged, {d['prefill_stall_seq_steps']} "
+          f"stall seq-steps; balance prefill {d['prefill_balance']}, decode "
+          f"{d['decode_balance']}; K1 {k1}, K4 {k4}, plain {dict(plain)}")
+    require(sorted(ids) == [r.req_id for r in reqs],
+            f"requests served {sorted(ids)}, submitted "
+            f"{[r.req_id for r in reqs]}")
+    require(all(r.n_generated == q.max_new for r, q in zip(
+        rep.records, sorted(reqs, key=lambda q: q.req_id))),
+        "a request lost or gained tokens")
+    require(d["transferred"] == len(reqs) and rep.rejected == 0,
+            f"{d['transferred']} transfers for {len(reqs)} requests")
+    require(d["handoff_peak"] <= d["handoff_depth"], "buffer past its depth")
+    require(d["handoff_bytes"] == slot * d["transferred"],
+            f"handoff bytes {d['handoff_bytes']} != {slot} x "
+            f"{d['transferred']}")
+    require(k1 == k4 > 0 and k1 % cfg.num_layers == 0
+            and not any(plain.values()),
+            f"launches K1 {k1}, K4 {k4}, plain {dict(plain)}")
+    del sess
+    return k1
+
+
+def phase_disagg_parity(cfg, device) -> None:
+    """24 (c): ``cfg``'s disaggregated run on the card and on the CPU from
+    identical weights: equal tokens and step-clock fields."""
+    from repro_torch.engine import DisaggConfig, ServeConfig
+    from repro_torch.launch.check_group import step_fields
+    from repro_torch.models import decoder as dec
+    from repro_torch.serve import ServingSession, replay_trace
+    cpu_model = dec.init_params(cfg, seed=0, device="cpu")
+    models = {"card": copy.deepcopy(cpu_model).to(device), "cpu": cpu_model}
+    dg = DisaggConfig(enabled=True, prefill_slots=3, decode_slots=2,
+                      handoff_depth=2)
+    reps = {}
+    for name, model in models.items():
+        reqs = replay_trace(GOLDEN_ARRIVALS, vocab=cfg.vocab, seed=11)
+        reps[name] = ServingSession(
+            cfg, ServeConfig(max_batch=3, max_seq=24), device=model.device,
+            model=model, disagg=dg).run(reqs)
+    toks = {k: [r.tokens for r in v.records] for k, v in reps.items()}
+    same = step_fields(reps["card"].to_dict()) == \
+        step_fields(reps["cpu"].to_dict())
+    print(f"  {cfg.name}: {sum(map(len, toks['card']))} tokens, card = CPU "
+          f"{toks['card'] == toks['cpu']}, step-clock fields equal {same}")
+    require(toks["card"] == toks["cpu"] and same,
+            f"card {toks['card']} != CPU {toks['cpu']}")
+
+
+def phase_group_serve(device, tmp: pathlib.Path, plain_train: list) -> dict:
+    """24 (a), (d) on four ranks, after their one-device references; then
+    (b) through ``launch/train`` held to phase 23 (c)'s records
+    (``plain_train``) -> the ranks' launches: {"serve": K1's and K4's in
+    (a) and (d), "train": K1's, K1b's and K4's in (b)}."""
+    from repro_torch.launch import check_group
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import spawn_group
+    with phase_stats("24 one-device references"):
+        ref = check_group.serve_references(device, 0, tmp)
+    held = torch.cuda.memory_allocated(device) / 2 ** 30
+    require(held < 1.0, f"the references were not freed ({held:.2f} GiB)")
+    t0 = time.perf_counter()
+    recs = spawn_group(check_group.serve_checks, (0, str(tmp)), 2, 2,
+                       backend="gloo", device="cuda")
+    print(f"  [24 (a), (d)] four ranks in {time.perf_counter() - t0:.1f} s")
+    launched = {"serve": {"K1": 0, "K4": 0},
+                "train": {"K1": 0, "K1b": 0, "K4": 0}}
+    for r in recs:
+        off, on, dg = r["off"], r["on"], r["disagg"]
+        for run in (off, on, dg):
+            for k, v in run["launches"].items():
+                launched["serve"][k] += v
+        walls = ", ".join(f"step {m['step']} {m['wall_s'] * 1e3:.0f} ms"
+                          for m in on["migrations"])
+        print(f"  rank {r['index']}: (a) logits off by {r['logits_rel']:.2e}"
+              f" of the one-device rows' largest; hook off {off['wall_s']:.1f}"
+              f" s for {off['decode_steps']} steps (build "
+              f"{off['build_s']:.1f} s, peak {off['peak_gib']:.2f} GiB), hook "
+              f"on {on['wall_s']:.1f} s, {len(on['migrations'])} migrations "
+              f"paid ({walls}), {on['report']['migrated_bytes']} B priced, "
+              f"peak {on['peak_gib']:.2f} GiB; launches {off['launches']} / "
+              f"{on['launches']}; (d) {dg['wall_s']:.1f} s, "
+              f"{dg['report']['disagg']['transferred']} handoffs, launches "
+              f"{dg['launches']}, peak {dg['peak_gib']:.2f} GiB")
+        require(r["logits_rel"] < SERVE_LOGITS_REL,
+                f"rank {r['index']}: logits off by {r['logits_rel']:.2e} "
+                f"(limit {SERVE_LOGITS_REL})")
+        require(on["tokens"] == recs[0]["on"]["tokens"]
+                and on["fields"] == recs[0]["on"]["fields"],
+                f"rank {r['index']}'s run differs from rank 0's")
+        require(dg["tokens"] == ref["tokens"]
+                and dg["fields"] == ref["fields"],
+                f"rank {r['index']}: the group's disaggregated run differs "
+                f"from one device's: {dg['fields']} against {ref['fields']}")
+    report = tmp / "group_train_hooks"
+    args = ["--arch", "olmoe-1b-7b", "--layers", "2", "--batch", "8",
+            "--seq", "512", "--n-micro", "2", "--steps", str(GROUP_STEPS),
+            "--lr", str(GROUP_LR), "--data-axis", "2", "--model-axis", "2",
+            "--backend", "gloo", "--report", str(report),
+            "--telemetry-record", "--trace-out", str(tmp / "trace.npz"),
+            "--prewarm", "--replication", "--replication-check-every", "2",
+            "--replication-threshold", "1.0", "--migration-gate", "0"]
+    t0 = time.perf_counter()
+    rc = train_cli.main(args)
+    wall = time.perf_counter() - t0
+    hooked = [json.loads((report / f"rank{i}.json").read_text())
+              for i in range(4)]
+    repl = hooked[0]["replication"]
+    rebuilds = ", ".join(f"step {m['step']} {m['build_s']:.2f} s"
+                         for m in repl["migrations"])
+    losses = ", ".join(f"{st['loss']:.6f}" for st in hooked[0]["steps"])
+    print(f"  [24 (b)] main returned {rc} in {wall:.1f} s: "
+          f"{len(repl['decisions'])} checks, {repl['replacements']} topology "
+          f"migrations (rebuilds {rebuilds}), {repl['moved_slots']} slots "
+          f"moved ({repl['migrated_bytes']} B); losses {losses}")
+    n = 2 * 2 * GROUP_STEPS
+    got, want = hooked[0]["steps"], plain_train[0]["steps"]
+    gaps = {"step 0 CE": abs(got[0]["ce_loss"] - want[0]["ce_loss"]),
+            "step 0 loss": abs(got[0]["loss"] - want[0]["loss"]),
+            "gradient norm (relative)": max(
+                abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                for g, w in zip(got, want)),
+            "steps 1-3 loss": max(abs(g["loss"] - w["loss"]) for g, w in
+                                  zip(got[1:], want[1:]))}
+    print("  [24 (b)] against phase 23 (c)'s run without the flags: "
+          + ", ".join(f"{k} off by {v:.3e}" for k, v in gaps.items()))
+    require(rc == 0 and repl["replacements"] >= 1,
+            "no topology migration fired in (b)")
+    for r in hooked:
+        require(r["launches"] == {"K1": n, "K1b": n, "K4": n}
+                and not any(r["plain"].values()),
+                f"rank {r['rank']}: launches {r['launches']}, plain "
+                f"{r['plain']}")
+        require(r["trace"] == hooked[0]["trace"]
+                and len(r["trace"]) == GROUP_STEPS,
+                f"rank {r['rank']}'s trace rows differ from rank 0's")
+        require(all(st["same_rows"] and st["overflow"] == 0
+                    for st in r["steps"]),
+                f"rank {r['rank']}: {r['steps']}")
+        require(r["replication"]["decisions"] == repl["decisions"],
+                f"rank {r['rank']}'s controller decided otherwise")
+        for k, v in r["launches"].items():
+            launched["train"][k] += v
+    for (k, v), limit in zip(gaps.items(), (STEP0_CE, STEP0_LOSS, GNORM_REL,
+                                            LATER_LOSS)):
+        require(v < limit, f"(b) {k} off by {v:.3e} (limit {limit})")
+    return launched
 
 
 def main() -> int:
@@ -2313,7 +2533,26 @@ def main() -> int:
     print("[23] MicroEP across a 2 x 2 group of ranks sharing the card "
           "(gloo): olmoe-1b-7b")
     with tempfile.TemporaryDirectory() as tmp:
-        phase_group(olmoe, device, pathlib.Path(tmp))
+        plain_train = phase_group(olmoe, device, pathlib.Path(tmp))
+    torch.cuda.empty_cache()
+
+    print("[24] serving on the group, paid migrations, disaggregated fleets: "
+          "olmoe-1b-7b")
+    with phase_stats("24 (c) disaggregated on one device, full size"):
+        k1_disagg = phase_disagg_one(olmoe, device)
+    torch.cuda.empty_cache()
+    with phase_stats("24 (c) card vs CPU"):
+        phase_disagg_parity(get_config("paper-gpt-32x1.3b").smoke(), device)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        launched = phase_group_serve(device, pathlib.Path(tmp), plain_train)
+    # the new paths' launches counted in: the one-device disaggregated run,
+    # every rank's serving runs and (b)'s training
+    record["launches"] += k1_disagg + launched["serve"]["K1"]
+    k4["launches"] += (k1_disagg + launched["serve"]["K4"]
+                       + launched["train"]["K4"])
+    k1_olmoe_train["launches"] += launched["train"]["K1"]
+    k1b["launches"] += launched["train"]["K1b"]
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     print(card)

@@ -1,5 +1,5 @@
 """Engine facade, typed configuration and the plugin registries."""
-from .config import (ConfigError, DeviceProfile, MemoryConfig,
+from .config import (ConfigError, DeviceProfile, DisaggConfig, MemoryConfig,
                      PlacementSpec, ReplicationConfig, RuntimeConfig,
                      SchedulePolicy, ServeConfig, TelemetryConfig,
                      profile_slot_budgets, profile_weights)
@@ -9,8 +9,8 @@ from .registry import (Registry, RegistryError, baseline_systems,
                        register_placement_strategy)
 from .engine import MicroEPEngine
 
-__all__ = ["ConfigError", "DeviceProfile", "MemoryConfig", "MicroEPEngine",
-           "PlacementSpec", "Registry", "RegistryError", "ReplicationConfig",
+__all__ = ["ConfigError", "DeviceProfile", "DisaggConfig", "MemoryConfig",
+           "MicroEPEngine", "PlacementSpec", "Registry", "RegistryError", "ReplicationConfig",
            "RuntimeConfig",
            "SchedulePolicy", "ServeConfig", "TelemetryConfig",
            "baseline_systems", "get_baseline_system",

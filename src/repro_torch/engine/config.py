@@ -1,7 +1,8 @@
 """Typed configuration of the port's engine and serving path (the port's
 copy of ``PlacementSpec``, ``DeviceProfile``, the device-profile helpers,
 ``SchedulePolicy``, ``MemoryConfig``, ``RuntimeConfig``, ``ServeConfig``,
-``TelemetryConfig`` and ``ReplicationConfig`` from ``repro.engine.config``).
+``TelemetryConfig``, ``ReplicationConfig`` and ``DisaggConfig`` from
+``repro.engine.config``).
 Each validates at construction (errors list the accepted options) and
 round-trips through ``to_dict``/``from_dict``."""
 from __future__ import annotations
@@ -12,9 +13,9 @@ from typing import Any, Mapping, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["ConfigError", "DeviceProfile", "PlacementSpec", "SchedulePolicy",
-           "MemoryConfig", "RuntimeConfig", "ServeConfig", "TelemetryConfig",
-           "ReplicationConfig",
+__all__ = ["ConfigError", "DeviceProfile", "DisaggConfig", "PlacementSpec",
+           "SchedulePolicy", "MemoryConfig", "RuntimeConfig", "ServeConfig",
+           "TelemetryConfig", "ReplicationConfig",
            "profile_weights", "profile_slot_budgets"]
 
 
@@ -896,6 +897,119 @@ class ReplicationConfig:
             "--replication-margin", str(self.improve_margin),
             "--replication-mc-samples", str(self.mc_samples),
         ]
+
+
+@dataclasses.dataclass(frozen=True)
+class DisaggConfig:
+    """Disaggregated prefill/decode serving configuration (twin of the
+    reference's, DESIGN.md §13).
+
+    enabled          — split the serving loop into a prefill fleet and a
+                       decode fleet joined by a bounded KV-handoff buffer
+                       (SERVING.md).  False (default): the co-located loop,
+                       its report the golden co-located one.
+    prefill_slots    — decode-step slots of the prefill fleet (the batch
+                       width prompts stream through).
+    decode_slots     — slots of the decode fleet (admits only requests
+                       whose KV handoff completed).
+    handoff_depth    — capacity of the KV-handoff buffer between the
+                       fleets.  A completed prefill whose KV cannot be
+                       staged (buffer full) stalls in its prefill slot —
+                       back-pressure, never loss.
+    prefill_profiles — per-device :class:`DeviceProfile` mix of the
+                       prefill fleet (compute-bound devices: high weight).
+                       Same forms as ``RuntimeConfig.device_profiles``.
+    decode_profiles  — profile mix of the decode fleet (memory-bound
+                       devices: high slot budgets).  Each fleet's LP
+                       schedules and placements are solved against its own
+                       profile mix (DESIGN.md §11 weights/budgets).  The
+                       profiles steer a group's fleets: one device refuses
+                       them.
+    """
+
+    enabled: bool = False
+    prefill_slots: int = 2
+    decode_slots: int = 2
+    handoff_depth: int = 4
+    prefill_profiles: Optional[Tuple[DeviceProfile, ...]] = None
+    decode_profiles: Optional[Tuple[DeviceProfile, ...]] = None
+
+    def __post_init__(self):
+        for name in ("prefill_slots", "decode_slots", "handoff_depth"):
+            v = getattr(self, name)
+            if not isinstance(v, (int, np.integer)) or v < 1:
+                raise ConfigError(
+                    f"DisaggConfig.{name} must be a positive int, got {v!r}")
+        for name in ("prefill_profiles", "decode_profiles"):
+            object.__setattr__(self, name,
+                               _canonical_profiles(getattr(self, name)))
+
+    # --------------------------------------------------- dict round-trip
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        for name in ("prefill_profiles", "decode_profiles"):
+            prof = getattr(self, name)
+            if prof is not None:
+                d[name] = [p.to_dict() for p in prof]
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "DisaggConfig":
+        return cls(**_known_fields(cls, d))
+
+    # ---------------------------------------------------- CLI round-trip
+    @staticmethod
+    def add_cli_args(parser: argparse.ArgumentParser,
+                     defaults: "DisaggConfig" = None) -> None:
+        d = defaults if defaults is not None else DisaggConfig()
+        b = argparse.BooleanOptionalAction
+        g = parser.add_argument_group("disaggregation")
+        g.add_argument("--disagg", action=b, default=d.enabled,
+                       help="serve with split prefill/decode fleets joined "
+                            "by a bounded KV-handoff buffer (DESIGN.md §13)")
+        g.add_argument("--prefill-slots", type=int, default=d.prefill_slots)
+        g.add_argument("--decode-slots", type=int, default=d.decode_slots)
+        g.add_argument("--handoff-depth", type=int, default=d.handoff_depth,
+                       help="KV-handoff buffer capacity; full = prefill "
+                            "back-pressure")
+        g.add_argument("--prefill-profiles",
+                       default=(",".join(p.to_cli()
+                                         for p in d.prefill_profiles)
+                                if d.prefill_profiles else None),
+                       help="prefill fleet 'weight[@slots]' device list "
+                            "(compute-bound mix; DESIGN.md §11 form)")
+        g.add_argument("--decode-profiles",
+                       default=(",".join(p.to_cli()
+                                         for p in d.decode_profiles)
+                                if d.decode_profiles else None),
+                       help="decode fleet 'weight[@slots]' device list "
+                            "(memory-bound mix)")
+
+    @classmethod
+    def from_cli_args(cls, args: argparse.Namespace) -> "DisaggConfig":
+        return cls(enabled=args.disagg,
+                   prefill_slots=args.prefill_slots,
+                   decode_slots=args.decode_slots,
+                   handoff_depth=args.handoff_depth,
+                   prefill_profiles=args.prefill_profiles,
+                   decode_profiles=args.decode_profiles)
+
+    def to_cli_args(self) -> list:
+        """Flag list such that ``from_cli_args(parser.parse_args(...))``
+        reproduces this config."""
+        flags = [
+            "--disagg" if self.enabled else "--no-disagg",
+            "--prefill-slots", str(self.prefill_slots),
+            "--decode-slots", str(self.decode_slots),
+            "--handoff-depth", str(self.handoff_depth),
+        ]
+        if self.prefill_profiles is not None:
+            flags += ["--prefill-profiles",
+                      ",".join(p.to_cli() for p in self.prefill_profiles)]
+        if self.decode_profiles is not None:
+            flags += ["--decode-profiles",
+                      ",".join(p.to_cli() for p in self.decode_profiles)]
+        return flags
 
 
 def _known_fields(cls, d: Mapping[str, Any]) -> dict:

@@ -22,6 +22,7 @@ host on ``cuda:(r mod cards)``).
 """
 from __future__ import annotations
 
+import argparse
 import datetime
 import os
 import pathlib
@@ -35,8 +36,8 @@ import torch.multiprocessing as mp
 from ..sharding import MeshInfo
 
 __all__ = ["BACKENDS", "GroupRun", "add_distributed_cli_args",
-           "check_distributed_args", "default_backend", "rank_device",
-           "init_rank", "start_group", "spawn_group"]
+           "check_distributed_args", "default_backend", "engine_flags_set",
+           "rank_device", "init_rank", "start_group", "spawn_group"]
 
 BACKENDS = ("nccl", "gloo")
 TIMEOUT_S = 900
@@ -86,6 +87,18 @@ def check_distributed_args(args) -> Optional[str]:
                 f"{args.num_hosts} hosts: one rank a process, so --num-hosts "
                 f"must be {max(args.data_axis, 1) * args.model_axis}")
     return None
+
+
+def engine_flags_set(args, keep=()) -> list:
+    """The ``RuntimeConfig`` flags given other than their defaults, apart
+    from ``keep`` (names like "remat"), as "--flag" strings: what one
+    device refuses, having no group's MoE layers to steer."""
+    from ..engine import RuntimeConfig
+    ap = argparse.ArgumentParser()
+    RuntimeConfig.add_cli_args(ap)
+    default = vars(ap.parse_args([]))
+    return sorted("--" + k.replace("_", "-") for k, v in default.items()
+                  if k not in keep and getattr(args, k) != v)
 
 
 def default_backend(device) -> str:

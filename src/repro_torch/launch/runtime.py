@@ -17,7 +17,7 @@ one device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,6 +96,41 @@ class DistRuntime:
         return dec.init_params(self.cfg, seed=seed, device=self.device,
                                expert_rows=rows)
 
+    def init_master(self, seed: int = 0,
+                    params_np: Optional[dict] = None
+                    ) -> Tuple[dec.Decoder, Dict[str, torch.Tensor]]:
+        """This rank's master: a model holding the dense parameters and
+        zero working slots of the placement, and the rank's canonical
+        experts keyed like the working slots' parameters (empty for a
+        dense decoder).  ``hooks.to_working`` fills the slots."""
+        model = self.init_params(seed, canonical=True, params_np=params_np)
+        canonical: Dict[str, torch.Tensor] = {}
+        if self.engine is not None:
+            for i, blk in enumerate(model.blocks):
+                for w in _EXPERT_LEAVES:
+                    canonical[f"blocks.{i}.moe.{w}"] = getattr(blk.moe,
+                                                               w).data
+            self.resize_working(model, fresh=True)
+        return model, canonical
+
+    def resize_working(self, model: dec.Decoder, fresh: bool = False) -> bool:
+        """Give ``model``'s working slots this placement's slot count: new
+        zero tensors where it changes, or everywhere with ``fresh`` (the
+        slots must never share storage with the canonical experts they
+        are filled from) -> whether any tensor was replaced."""
+        s_n = self.placement.slots
+        changed = False
+        for blk in model.blocks:
+            for w in _EXPERT_LEAVES:
+                p = getattr(blk.moe, w)
+                if fresh or p.shape[0] != s_n:
+                    setattr(blk.moe, w, torch.nn.Parameter(
+                        torch.zeros((s_n,) + tuple(p.shape[1:]),
+                                    dtype=p.dtype, device=p.device),
+                        requires_grad=False))
+                    changed = True
+        return changed
+
     def init_train_state(self, seed: int = 0,
                          params_np: Optional[dict] = None) -> TrainState:
         """Master parameters of this rank (dense, replicated; its canonical
@@ -104,18 +139,7 @@ class DistRuntime:
         step's start."""
         self.config.check_trainable()
         dec.check_trainable(self.cfg)
-        model = self.init_params(seed, canonical=True, params_np=params_np)
-        canonical: Dict[str, torch.Tensor] = {}
-        if self.engine is not None:
-            s_n = self.placement.slots
-            for i, blk in enumerate(model.blocks):
-                for w in _EXPERT_LEAVES:
-                    p = getattr(blk.moe, w)
-                    canonical[f"blocks.{i}.moe.{w}"] = p.data
-                    setattr(blk.moe, w, torch.nn.Parameter(
-                        torch.zeros((s_n,) + tuple(p.shape[1:]),
-                                    dtype=p.dtype, device=p.device),
-                        requires_grad=False))
+        model, canonical = self.init_master(seed, params_np)
         model.requires_grad_(True)
         master = {n: p for n, p in model.named_parameters()
                   if self.hooks is None or n not in self.hooks.expert_names}
@@ -209,7 +233,8 @@ def build_runtime(cfg: ArchConfig, mi: MeshInfo,
             chunk_comm=config.chunk_comm)
         plan = build_sync_plan(engine.placement)
         hooks = _build_hooks(cfg, mi, plan)
-    return DistRuntime(cfg=cfg, mi=mi, rt=dec.Runtime(moe_apply=moe_apply),
+    return DistRuntime(cfg=cfg, mi=mi,
+                       rt=dec.Runtime(moe_apply=moe_apply, mesh=mi),
                        hooks=hooks, engine=engine, sync_plan=plan,
                        config=config, device=device)
 

@@ -1,9 +1,10 @@
-"""Serving entry point on one device (twin of ``repro.launch.serve``, co-located
-and single-device): Poisson or replay traffic feeds the slot/KV-budget batch
-manager; one decode step per tick interleaves prefill and decode and re-runs
-the MicroEP scheduler in every MoE layer on the live batch's expert loads
-(an RWKV-6 decoder carries each slot's recurrent state through K3s instead;
-a dense decoder has no MoE layer and reports no balance).
+"""Serving entry point (twin of ``repro.launch.serve``), on one device or on
+a (data × model) group of ranks, co-located or disaggregated: Poisson or
+replay traffic feeds the slot/KV-budget batch manager; one decode step per
+tick interleaves prefill and decode and re-runs the MicroEP scheduler in
+every MoE layer on the live batch's expert loads (an RWKV-6 decoder carries
+each slot's recurrent state through K3s instead; a dense decoder has no MoE
+layer and reports no balance).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
       --requests 4 --prompt-len 8 --gen 8 --max-batch 4
@@ -22,16 +23,39 @@ a dense decoder has no MoE layer and reports no balance).
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch paper-gpt-32x1.3b --smoke --device cpu --traffic trace \
       --trace /tmp/load.npz
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+      --smoke --device cpu --data-axis 2 --model-axis 2 --backend gloo \
+      --max-batch 8 --replacement --repl-check-every 4 --repl-threshold 1.0
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+      --smoke --device cpu --disagg --prefill-slots 4 --decode-slots 4 \
+      [--data-axis 2 --model-axis 2 --backend gloo]
 
 Runs on the CUDA device unless ``--device cpu`` is given; weights are f32,
 random from ``--seed``, drawn on the device.  ``--replacement`` (reactive;
 ``--forecast-replacement`` for the forecast planner) and ``--replication``
-(the replica-topology controller) run the replacement hook in shadow mode
-on one device: it checks and records its decisions, nothing migrates.
-``--telemetry-record`` / ``--trace-out`` record each decode step's expert
-loads; ``--traffic trace --trace FILE`` shapes arrivals from such a load
-trace, ``--traffic replay --trace FILE.json`` replays a JSON request
-trace.
+(the replica-topology controller) run the replacement hook: in shadow mode
+on one device (it checks and records its decisions, nothing migrates), and
+on a group each fired placement is migrated to, the working slots refilled
+from the canonical experts.  ``--telemetry-record`` / ``--trace-out``
+record each decode step's expert loads; ``--traffic trace --trace FILE``
+shapes arrivals from such a load trace, ``--traffic replay --trace
+FILE.json`` replays a JSON request trace.
+
+``--data-axis D --model-axis M`` serves on a group of D × M ranks: this
+host spawns them (``launch.mesh.spawn_group``), or, with ``--coordinator
+HOST:PORT --num-hosts D·M --host-id i``, this process is rank i.
+``--backend`` picks torch.distributed's backend (``nccl`` needs a card for
+each rank of a host, ``gloo`` runs on the CPU or lets ranks share cards).
+The engine flags (``RuntimeConfig``'s: ``--placement``,
+``--capacity-factor``, ``--pipeline-stages``, ...) steer the group's MoE
+layers, and one device refuses them.  Every rank serves the same requests;
+rank 0 prints the report.
+
+``--disagg`` (with ``--prefill-slots``, ``--decode-slots``,
+``--handoff-depth`` and, on a group, ``--prefill-profiles`` /
+``--decode-profiles``) splits serving into a prefill fleet and a decode
+fleet joined by a bounded KV-handoff buffer.  ``--fleet`` (elastic fleets)
+and ``--resilience`` (fault injection) are not ported yet and are refused.
 """
 from __future__ import annotations
 
@@ -42,12 +66,14 @@ import json
 import torch
 
 from ..configs import get_config
-from ..engine import ReplicationConfig, ServeConfig, TelemetryConfig
+from ..engine import (DisaggConfig, ReplicationConfig, RuntimeConfig,
+                      ServeConfig, TelemetryConfig)
 from ..serve import (ServingSession, load_trace, poisson_trace, replay_trace,
                      trace_requests)
+from . import mesh as M
 
 
-def main(argv=None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -76,16 +102,122 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", action="store_true",
                     help="print the full ServeReport as JSON")
+    for flag in ("--fleet", "--resilience"):
+        ap.add_argument(flag, action="store_true",
+                        help="refused: not ported yet (ROADMAP.md, Queue 1)")
+    RuntimeConfig.add_cli_args(ap)
+    M.add_distributed_cli_args(ap)
     ServeConfig.add_cli_args(ap)
     TelemetryConfig.add_cli_args(ap)
     ReplicationConfig.add_cli_args(ap)
+    DisaggConfig.add_cli_args(ap)
+    return ap
+
+
+def _check_args(ap: argparse.ArgumentParser, args, serve_cfg, telemetry,
+                disagg) -> None:
+    for flag, what in (("fleet", "elastic fleets"),
+                       ("resilience", "fault injection and recovery")):
+        if getattr(args, flag):
+            ap.error(f"--{flag}: the reference's {what} are not ported yet "
+                     f"(ROADMAP.md, Queue 1)")
+    if telemetry.forecast_replacement and not serve_cfg.replacement:
+        ap.error("--forecast-replacement selects the trigger policy of the "
+                 "replacement hook; enable the hook with --replacement")
+    err = M.check_distributed_args(args)
+    if err:
+        ap.error(err)
+    if args.data_axis == 0:
+        if args.model_axis != 1 or args.num_hosts != 1:
+            ap.error("--model-axis/--num-hosts need --data-axis: a group of "
+                     "ranks has data-axis rows")
+        if args.backend is not None:
+            ap.error("--backend needs --data-axis: one device runs no "
+                     "collective")
+        engine = M.engine_flags_set(args)
+        if engine:
+            ap.error(f"{', '.join(engine)} need --data-axis: the engine "
+                     f"flags steer a group's MoE layers, and one device "
+                     f"runs the fixed one-device group")
+        if disagg.prefill_profiles is not None or \
+                disagg.decode_profiles is not None:
+            ap.error("--prefill-profiles/--decode-profiles need "
+                     "--data-axis: they weigh a group's ranks")
+    elif args.dtype != "float32" or args.remat:
+        ap.error("serving runs in float32 and has no backward: --dtype "
+                 "bfloat16 and --remat are refused")
+
+
+def _requests(ap, args, cfg):
+    if args.traffic == "trace":
+        if not args.trace:
+            ap.error("--traffic trace needs --trace LOADTRACE.npz")
+        return trace_requests(args.trace, cfg.vocab, rate=args.rate,
+                              prompt_len=args.prompt_len, gen_len=args.gen,
+                              seed=args.seed + 1)
+    if args.traffic == "replay" and args.trace:
+        return load_trace(args.trace, cfg.vocab, seed=args.seed + 1)
+    if args.traffic == "replay":
+        every = max(int(round(1.0 / args.rate)), 1)
+        return replay_trace([(i * every, args.prompt_len, args.gen)
+                             for i in range(args.requests)], cfg.vocab,
+                            seed=args.seed + 1)
+    return poisson_trace(args.requests, args.rate, cfg.vocab,
+                         prompt_len=args.prompt_len, gen_len=args.gen,
+                         seed=args.seed + 1)
+
+
+def _serve(mi, device, args, cfg, serve_cfg, run_cfg, telemetry,
+           replication, disagg, requests) -> dict:
+    """Build the session (one device when ``mi`` is None, else this rank's
+    of the group), serve ``requests`` and print on rank 0 -> the report's
+    dict."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
+    if mi is not None and torch.device(device).type == "cpu":
+        torch.set_num_threads(1)
+    sess = ServingSession(
+        cfg, serve_cfg, run_cfg=run_cfg if mi is not None else None,
+        mesh=mi, seed=args.seed, device=device,
+        telemetry=telemetry if telemetry.enabled else None,
+        replication=replication if replication.enabled else None,
+        disagg=disagg if disagg.enabled else None)
+    report = sess.run(requests)
+    if mi is None or mi.index == 0:
+        where = ("" if mi is None else
+                 f" group={mi.data}x{mi.model} ({run_cfg.placement.strategy})")
+        if disagg.enabled:
+            print(f"arch={cfg.name} device={sess.device}{where} disagg: "
+                  f"prefill={disagg.prefill_slots} "
+                  f"decode={disagg.decode_slots} "
+                  f"handoff_depth={disagg.handoff_depth} "
+                  f"max_seq={serve_cfg.max_seq} traffic={args.traffic}")
+        else:
+            print(f"arch={cfg.name} device={sess.device}{where} "
+                  f"slots={serve_cfg.max_batch} max_seq={serve_cfg.max_seq} "
+                  f"kv_budget={serve_cfg.budget_tokens} "
+                  f"traffic={args.traffic}")
+        print(report.summary())
+        for m in sess.migration_log:
+            print(f"migration at step {m['step']}"
+                  + (f" ({m['fleet']} fleet)" if m["fleet"] else "")
+                  + f": {m['wall_s'] * 1e3:.1f} ms of suspension")
+        if sess.recorder is not None and telemetry.trace_path:
+            print(f"recorded {len(sess.recorder)}-step load trace -> "
+                  f"{telemetry.trace_path}")
+        if args.json:
+            print(json.dumps(report.to_dict(), indent=1))
+    return report.to_dict()
+
+
+def main(argv=None) -> int:
+    ap = _parser()
     args = ap.parse_args(argv)
     serve_cfg = ServeConfig.from_cli_args(args)
     telemetry = TelemetryConfig.from_cli_args(args)
     replication = ReplicationConfig.from_cli_args(args)
-    if telemetry.forecast_replacement and not serve_cfg.replacement:
-        ap.error("--forecast-replacement selects the trigger policy of the "
-                 "replacement hook; enable the hook with --replacement")
+    disagg = DisaggConfig.from_cli_args(args)
+    _check_args(ap, args, serve_cfg, telemetry, disagg)
+    run_cfg = RuntimeConfig.from_cli_args(args)
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -103,41 +235,25 @@ def main(argv=None) -> int:
             serve_cfg, max_seq=args.prompt_len + args.gen)
         print(f"note: default --max-seq grown to {serve_cfg.max_seq} to fit "
               f"--prompt-len {args.prompt_len} + --gen {args.gen}")
-
-    if args.traffic == "trace":
-        if not args.trace:
-            ap.error("--traffic trace needs --trace LOADTRACE.npz")
-        requests = trace_requests(args.trace, cfg.vocab, rate=args.rate,
-                                  prompt_len=args.prompt_len,
-                                  gen_len=args.gen, seed=args.seed + 1)
-    elif args.traffic == "replay" and args.trace:
-        requests = load_trace(args.trace, cfg.vocab, seed=args.seed + 1)
-    elif args.traffic == "replay":
-        every = max(int(round(1.0 / args.rate)), 1)
-        requests = replay_trace(
-            [(i * every, args.prompt_len, args.gen)
-             for i in range(args.requests)], cfg.vocab, seed=args.seed + 1)
-    else:
-        requests = poisson_trace(
-            args.requests, args.rate, cfg.vocab,
-            prompt_len=args.prompt_len, gen_len=args.gen,
-            seed=args.seed + 1)
-
-    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
-    sess = ServingSession(
-        cfg, serve_cfg, seed=args.seed, device=args.device,
-        telemetry=telemetry if telemetry.enabled else None,
-        replication=replication if replication.enabled else None)
-    report = sess.run(requests)
-    print(f"arch={cfg.name} device={sess.device} "
-          f"slots={serve_cfg.max_batch} max_seq={serve_cfg.max_seq} "
-          f"kv_budget={serve_cfg.budget_tokens} traffic={args.traffic}")
-    print(report.summary())
-    if sess.recorder is not None and telemetry.trace_path:
-        print(f"recorded {len(sess.recorder)}-step load trace -> "
-              f"{telemetry.trace_path}")
-    if args.json:
-        print(json.dumps(report.to_dict(), indent=1))
+    requests = _requests(ap, args, cfg)
+    rest = (args, cfg, serve_cfg, run_cfg, telemetry, replication, disagg,
+            requests)
+    if args.data_axis == 0:
+        _serve(None, args.device, *rest)
+        return 0
+    backend = args.backend or M.default_backend(args.device)
+    if args.num_hosts == 1:
+        M.spawn_group(_serve, rest, args.data_axis, args.model_axis,
+                      backend=backend, device=args.device)
+        return 0
+    mi, dev = M.init_rank(args.host_id, args.data_axis * args.model_axis,
+                          f"tcp://{args.coordinator}", backend, args.device,
+                          args.data_axis, args.model_axis, local_rank=0,
+                          local_ranks=1)
+    try:
+        _serve(mi, dev, *rest)
+    finally:
+        torch.distributed.destroy_process_group()
     return 0
 
 

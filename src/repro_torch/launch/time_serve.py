@@ -2,7 +2,7 @@
 hook on, for this checkout and for other source trees, in turns.
 
   PYTHONPATH=src python -m repro_torch.launch.time_serve [--against DIR ...]
-      [--arch olmoe-1b-7b] [--turns 2] [--runs 3] [--out DIR]
+      [--arch olmoe-1b-7b] [--turns 2] [--runs 3] [--out DIR] [--disagg]
 
 The session is ``chip_smoke.py`` phase 4's: f32 weights drawn on the card
 from seed 0, 4 Poisson requests (rate 0.5, 8-token prompts, 8 generated,
@@ -19,6 +19,12 @@ serving slice has, so an earlier tree needs no copy of this file.  Prints
 every run, each tree's mean and median and the card's name and power
 limit, and writes the summary as JSON under ``--out``.  Needs a CUDA
 device.
+
+``--disagg`` times the two-fleet step instead: the same requests served
+disaggregated (4 prefill and 4 decode slots, handoff depth 2), each run's
+wall a tick that stepped a fleet.  Every tree then needs
+``DisaggConfig`` (``repro_torch.engine``, from the disaggregation slice
+on).
 """
 from __future__ import annotations
 
@@ -40,7 +46,12 @@ from repro_torch.configs import get_config
 from repro_torch.engine import ServeConfig
 from repro_torch.models import decoder as dec
 from repro_torch.serve import ServingSession, poisson_trace
-arch, runs = sys.argv[1], int(sys.argv[2])
+arch, runs, disagg = sys.argv[1], int(sys.argv[2]), sys.argv[3] == "disagg"
+split = {}
+if disagg:
+    from repro_torch.engine import DisaggConfig
+    split["disagg"] = DisaggConfig(enabled=True, prefill_slots=4,
+                                   decode_slots=4, handoff_depth=2)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 device = torch.device("cuda", 0)
@@ -49,7 +60,7 @@ model = dec.init_params(cfg, seed=0, device=device)
 requests = poisson_trace(4, rate=0.5, vocab=cfg.vocab, prompt_len=8,
                          gen_len=8, seed=1)
 sess = ServingSession(cfg, ServeConfig(max_batch=4, max_seq=16),
-                      device=device, model=model)
+                      device=device, model=model, **split)
 sess.run(requests)
 ms, steps = [], []
 for _ in range(runs):
@@ -67,10 +78,12 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def serve_once(tree: pathlib.Path, arch: str, runs: int) -> dict:
+def serve_once(tree: pathlib.Path, arch: str, runs: int,
+               disagg: bool = False) -> dict:
     """One process serving from ``tree``'s ``repro_torch``."""
     env = dict(os.environ, PYTHONPATH=str(tree / "src"))
-    out = subprocess.run([sys.executable, "-c", WORKER, arch, str(runs)],
+    out = subprocess.run([sys.executable, "-c", WORKER, arch, str(runs),
+                          "disagg" if disagg else "colocated"],
                          env=env, capture_output=True, text=True)
     lines = [ln for ln in out.stdout.splitlines()
              if ln.startswith("TIME_SERVE ")]
@@ -87,6 +100,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--turns", type=int, default=2)
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--out", type=pathlib.Path, default=None)
+    ap.add_argument("--disagg", action="store_true",
+                    help="time the disaggregated two-fleet step")
     args = ap.parse_args(argv)
     trees = [ROOT] + [p.resolve() for p in args.against]
     for t in trees:
@@ -97,11 +112,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     per_tree = {str(t): [] for t in trees}
     for k in range(args.turns):
         for t in (trees if k % 2 == 0 else trees[::-1]):
-            got = serve_once(t, args.arch, args.runs)
+            got = serve_once(t, args.arch, args.runs, args.disagg)
             per_tree[str(t)].extend(got["ms"])
             print(f"turn {k} {t}: {', '.join(f'{v:.2f}' for v in got['ms'])}"
                   f" ms a decode step ({got['decode_steps'][0]} steps a run)")
-    summary = {"arch": args.arch, "card": card, "runs": args.runs,
+    summary = {"arch": args.arch, "disagg": args.disagg, "card": card,
+               "runs": args.runs,
                "turns": args.turns, "ms": per_tree,
                "mean_ms": {t: statistics.mean(v)
                            for t, v in per_tree.items()},

@@ -48,9 +48,11 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..core.solver import SolverState
 from ..engine import MicroEPEngine
+from ..moe.comm import all_reduce_sum
 from ..moe.experts import ExpertParams
 from ..moe.layer import MoEMetrics, moe_ffn
 from ..moe.router import RouterOut, top_k_gating
+from ..sharding import MeshInfo
 from .layers.attention import (AttnConfig, Attention, KVCache, attention,
                                decode_attention, init_attention,
                                init_kv_cache)
@@ -64,6 +66,8 @@ __all__ = ["require_device", "check_servable", "check_forward",
            "load_reference_params", "reference_tree", "forward", "lm_loss",
            "lm_loss_chunked", "loss_fn", "init_solver_states",
            "init_decode_state", "decode_step", "reset_decode_slots",
+           "extract_decode_slot", "insert_decode_slot", "decode_slot_bytes",
+           "pack_decode_slot", "unpack_decode_slot", "share_dense",
            "expand_router_etp", "MOE_BM", "make_moe_apply", "local_moe_apply",
            "n_moe_layers"]
 
@@ -90,9 +94,12 @@ class Runtime:
       (:func:`local_moe_apply`).  ``launch.runtime.build_runtime`` installs
       the group's (:func:`make_moe_apply` on the group's engine): its
       metrics are the rank's own, and the group runtime's step functions
-      average them over the group."""
+      average them over the group.
+    mesh: the rank's :class:`~repro_torch.sharding.MeshInfo` (None: one
+      device); :func:`decode_step` averages its metrics over it."""
 
     moe_apply: Optional[Callable] = None
+    mesh: Optional[MeshInfo] = None
 
 
 def _is_rwkv(cfg: ArchConfig) -> bool:
@@ -834,7 +841,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
 
 @torch.no_grad()
 def decode_step(model: Decoder, state: dict, batch: dict,
-                with_metrics: bool = False):
+                with_metrics: bool = False, rt: Optional[Runtime] = None):
     """One-token decode: batch {"tokens": int[B, 1], optional "active":
     bool[B]} -> (logits [B, 1, V], new_state[, MoEMetrics summed over
     layers]).
@@ -846,7 +853,14 @@ def decode_step(model: Decoder, state: dict, batch: dict,
     block applies its FFN.  An RWKV-6
     block decodes from the slot's state (``RWKVBlock.decode``: K3s on a
     CUDA device); its metrics are zeros.  The input state is not
-    modified."""
+    modified.
+
+    ``rt`` (:class:`Runtime`) runs every MoE layer through its
+    ``moe_apply``: on a rank of a group, ``batch`` and ``state`` hold the
+    rank's slots (``MeshInfo.split_batch``'s rows of the global batch, its
+    padded slots inactive), and the metrics are the group's, the same on
+    every rank (the scalars averaged over the group, as the reference's
+    ``pmean``; the expert loads are group-wide already)."""
     cfg = model.cfg
     check_servable(cfg)
     x = model.embed[batch["tokens"]]                     # [B, 1, dm]
@@ -863,6 +877,7 @@ def decode_step(model: Decoder, state: dict, batch: dict,
         acfg = _attn_cfg(cfg)
         active = batch.get("active")
         solver = state.get("solver")
+        moe_apply = None if rt is None else rt.moe_apply
         new_kv, new_solver = [], []
         for i, blk in enumerate(model.blocks):
             h = blk.ln1(x)
@@ -870,7 +885,8 @@ def decode_step(model: Decoder, state: dict, batch: dict,
                                         state["kv"][i]._replace(length=pos))
             x = x + h
             st = None if solver is None else solver[i]
-            h, m, st = blk.mlp(blk.ln2(x), st, valid=active)
+            h, m, st = blk.mlp(blk.ln2(x), st, valid=active,
+                               moe_apply=moe_apply)
             x = x + h
             acc = _accum(acc, m)
             new_kv.append(cache)
@@ -880,9 +896,15 @@ def decode_step(model: Decoder, state: dict, batch: dict,
             new_state["solver"] = new_solver if solver is not None else None
     x = model.final_norm(x)
     logits = x @ (model.head if model.head is not None else model.embed.T)
-    if with_metrics:
-        return logits, new_state, acc
-    return logits, new_state
+    if not with_metrics:
+        return logits, new_state
+    mesh = None if rt is None else rt.mesh
+    if cfg.moe and mesh is not None and mesh.group_size > 1:
+        scal = torch.stack([acc.aux_loss, acc.z_loss, acc.max_load,
+                            acc.balance, acc.overflow]).float()
+        scal = all_reduce_sum(scal, mesh.pg) / mesh.group_size
+        acc = MoEMetrics(*scal, acc.expert_load)
+    return logits, new_state, acc
 
 
 def reset_decode_slots(state: dict, mask: torch.Tensor) -> dict:
@@ -906,3 +928,126 @@ def reset_decode_slots(state: dict, mask: torch.Tensor) -> dict:
         out["rwkv"] = [RWKVState(*(clear(a) for a in st))
                        for st in state["rwkv"]]
     return out
+
+
+# --------------------------------------------------------------------------
+# one slot's caches: the prefill -> decode handoff of disaggregated serving
+# --------------------------------------------------------------------------
+
+
+def _slot_leaves(state: dict) -> List[torch.Tensor]:
+    """The per-sequence cache tensors of a decode state, [B, ...] each, in
+    layer order: a layer's k and v, or its wkv and both shifts.  The
+    caches' ``length`` is the position and is not among them."""
+    if "kv" in state:
+        return [a for c in state["kv"] for a in (c.k, c.v)]
+    return [a for st in state["rwkv"] for a in st]
+
+
+def extract_decode_slot(state: dict, slot: int) -> dict:
+    """One slot's caches out of a decode state (twin of the reference's
+    ``extract_decode_slot``): the KV-handoff payload of a completed
+    prefill, {"pos": the slot's position, "kv": [KVCache per layer, the
+    slot axis removed, its length the position]} or {"pos", "rwkv":
+    [RWKVState per layer]}.  The "solver" warm start belongs to a fleet's
+    expert-load stream, not to a sequence, and is left out.  The payload's
+    tensors are copies."""
+    pos = state["pos"][slot].clone()
+    out = {"pos": pos}
+    if "kv" in state:
+        out["kv"] = [KVCache(k=c.k[slot].clone(), v=c.v[slot].clone(),
+                             length=pos) for c in state["kv"]]
+    if "rwkv" in state:
+        out["rwkv"] = [RWKVState(*(a[slot].clone() for a in st))
+                       for st in state["rwkv"]]
+    return out
+
+
+def insert_decode_slot(state: dict, payload: dict, slot: int) -> dict:
+    """Write a payload of :func:`extract_decode_slot` (from a state of any
+    batch width and the same ``max_seq``) into ``slot`` of ``state``: the
+    receive side of the handoff.  Returns the new state; the input state
+    is not modified and its "solver" entry, the receiving fleet's, is
+    kept."""
+    def put(a: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+        out = a.clone()
+        out[slot] = row.to(device=a.device, dtype=a.dtype)
+        return out
+
+    out = dict(state)
+    out["pos"] = put(state["pos"], payload["pos"])
+    if "kv" in state:
+        out["kv"] = [KVCache(k=put(c.k, p.k), v=put(c.v, p.v),
+                             length=put(c.length, payload["pos"]))
+                     for c, p in zip(state["kv"], payload["kv"])]
+    if "rwkv" in state:
+        out["rwkv"] = [RWKVState(*(put(a, b) for a, b in zip(st, p)))
+                       for st, p in zip(state["rwkv"], payload["rwkv"])]
+    return out
+
+
+def decode_slot_bytes(state: dict) -> int:
+    """Bytes of one slot's handoff payload (what a ``HandoffBuffer`` entry
+    accounts, as the reference's ``decode_slot_bytes``): the position as a
+    32-bit word and the slot's share of every per-sequence cache, which is
+    :func:`pack_decode_slot`'s buffer."""
+    b = state["pos"].shape[0]
+    return 4 + sum(a.nbytes // b for a in _slot_leaves(state))
+
+
+_POS_EXACT = 1 << 24      # positions travel in an f32 word, exact below
+
+
+def pack_decode_slot(payload: dict) -> torch.Tensor:
+    """A payload as one f32 buffer of ``decode_slot_bytes`` bytes (the
+    form in which it crosses the group): the position, then every cache
+    leaf flattened, in :func:`_slot_leaves`'s order."""
+    pos = int(payload["pos"])
+    if not 0 <= pos < _POS_EXACT:
+        raise ValueError(f"position {pos} outside an f32 word's exact "
+                         f"integers")
+    leaves = _slot_leaves({k: v for k, v in payload.items() if k != "pos"})
+    return torch.cat([torch.full((1,), float(pos), device=leaves[0].device)]
+                     + [a.float().reshape(-1) for a in leaves])
+
+
+def unpack_decode_slot(buf: torch.Tensor, state: dict) -> dict:
+    """The payload that :func:`pack_decode_slot` made ``buf`` of, shaped
+    like one slot of ``state``."""
+    pos = buf[0].to(state["pos"].dtype)
+    rows, off = [], 1
+    for a in _slot_leaves(state):
+        n = a[0].numel()
+        rows.append(buf[off:off + n].reshape(a.shape[1:]).to(a.dtype))
+        off += n
+    if off != buf.numel():
+        raise ValueError(f"a buffer of {buf.numel()} words for a payload of "
+                         f"{off}")
+    if "kv" in state:
+        return {"pos": pos, "kv": [KVCache(k=rows[2 * i],
+                                           v=rows[2 * i + 1], length=pos)
+                                   for i in range(len(state["kv"]))]}
+    return {"pos": pos, "rwkv": [RWKVState(*rows[3 * i:3 * i + 3])
+                                 for i in range(len(state["rwkv"]))]}
+
+
+def share_dense(model: Decoder, expert_rows: int) -> Decoder:
+    """A decoder holding ``model``'s dense parameters (the same tensors,
+    not copies) and MoE expert tensors of its own, zeros of
+    ``expert_rows`` rows on ``model``'s device: a second set of working
+    slots over one set of dense weights (a disaggregated fleet's on a
+    group of ranks).  Nothing of the dense part is allocated twice."""
+    cfg = model.cfg
+    if not _is_moe_attention(cfg):
+        raise ValueError(f"{cfg.name} has no MoE layer to hold slots of")
+    twin = Decoder(cfg, device="meta", expert_rows=expert_rows)
+    twin.embed, twin.final_norm, twin.head = (model.embed, model.final_norm,
+                                              model.head)
+    for mine, src in zip(twin.blocks, model.blocks):
+        mine.ln1, mine.attn, mine.ln2 = src.ln1, src.attn, src.ln2
+        mine.moe.router = src.moe.router
+        for w in ExpertParams._fields:
+            shape = (expert_rows,) + tuple(getattr(src.moe, w).shape[1:])
+            setattr(mine.moe, w, nn.Parameter(
+                torch.zeros(shape, device=model.device), requires_grad=False))
+    return twin

@@ -30,7 +30,9 @@ and ``bench_serving.py`` can report why each migration happened.
 
 On one device the hook runs in *shadow* mode: prediction, trigger and
 regeneration run and are counted, but the degenerate one-device group has
-nothing to migrate.
+nothing to migrate.  On a group of ranks every rank runs its own hook on
+the same group-wide loads with the same seed, so all take the same
+decisions.
 """
 from __future__ import annotations
 
@@ -60,10 +62,18 @@ class ServeReplacement:
     def __init__(self, placement: Placement, serve_cfg: ServeConfig,
                  bytes_per_expert: int, seed: int = 0,
                  telemetry: Optional[TelemetryConfig] = None,
-                 replication: Optional[ReplicationConfig] = None):
+                 weights=None, slot_budgets=None,
+                 replication: Optional[ReplicationConfig] = None,
+                 fleet: Optional[str] = None):
+        # disaggregated serving runs one hook per fleet; ``fleet`` tags
+        # every decision record with the fleet that fired.  None
+        # (co-located) leaves records untouched.
+        self.fleet = fleet
         self.topology = bool(replication is not None and replication.enabled)
         self.forecast = self.topology or bool(
             telemetry is not None and telemetry.forecast_replacement)
+        # heterogeneous groups: scores are weighted makespans and
+        # regenerated placements respect the slot budgets
         if self.topology:
             from ..replication import TopologyController
             from ..telemetry import predictor_from_config
@@ -77,7 +87,7 @@ class ServeReplacement:
                 improve_margin=replication.improve_margin,
                 mc_samples=replication.mc_samples,
                 horizon=(telemetry.horizon if telemetry is not None else 1),
-                seed=seed)
+                seed=seed, weights=weights, slot_budgets=slot_budgets)
         elif self.forecast:
             from ..telemetry import (ReplacementPlanner,
                                      predictor_from_config)
@@ -86,13 +96,15 @@ class ServeReplacement:
                 predictor=predictor_from_config(telemetry),
                 check_every=serve_cfg.repl_check_every,
                 threshold=serve_cfg.repl_threshold,
-                horizon=telemetry.horizon, seed=seed)
+                horizon=telemetry.horizon, seed=seed,
+                weights=weights, slot_budgets=slot_budgets)
         else:
             self.manager = ReplacementManager(
                 placement,
                 ReplacementConfig(check_every=serve_cfg.repl_check_every,
                                   threshold=serve_cfg.repl_threshold,
-                                  seed=seed))
+                                  seed=seed),
+                weights=weights, slot_budgets=slot_budgets)
         self.bytes_per_expert = int(bytes_per_expert)
         self.migrated_bytes = 0
         self.events: List[dict] = []
@@ -133,6 +145,8 @@ class ServeReplacement:
                                      or self.events[-1] is not decision):
             if step is not None:
                 decision["step"] = int(step)
+            if self.fleet is not None:
+                decision["fleet"] = self.fleet
             self.events.append(decision)
         if not fired:
             return None

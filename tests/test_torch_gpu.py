@@ -1197,3 +1197,71 @@ def test_cuda_group_layer_matches_monolithic_and_one_device(dims):
     for rec in spawn_group(layer_check, (7, dims), 1, 2, backend="gloo",
                            device="cuda"):
         assert rec["g1_equal"] and rec["flow_identical"]
+
+
+@pytest.mark.gpu
+def test_cuda_group_decode_step_matches_one_device():
+    """A 1 × 2 group of ranks on the card (``check_group.
+    decode_pair_check``): one olmoe-1b-7b decode step at full width and 2
+    layers, each rank's rows of the logits within 1e-5 of the one-device
+    step's largest magnitude, K4 and K1 once a layer, no plain version,
+    the working slots filled from the canonical experts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K1 and K4 are CUDA kernels)")
+    from repro_torch.launch.check_group import decode_pair_check
+    from repro_torch.launch.mesh import spawn_group
+    for rec in spawn_group(decode_pair_check, (3,), 1, 2, backend="gloo",
+                           device="cuda"):
+        assert rec["rel"] < 1e-5, rec
+        assert rec["launches"] == {"K4": 2, "K1": 2}, rec
+        assert not any(rec["plain"].values()) and rec["working_equal"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "rwkv6-7b"])
+def test_cuda_decode_slot_handoff_equals_cpu(arch):
+    """``extract_decode_slot`` / ``pack`` / ``unpack`` /
+    ``insert_decode_slot`` on CUDA states (KV caches, RWKV-6 states) give
+    the CPU's states bit for bit, and the packed payload is
+    ``decode_slot_bytes`` long."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_config
+    from repro_torch.models import decoder as dec
+    cfg = get_config(arch).smoke()
+    g = torch.Generator().manual_seed(0)
+
+    def filled(batch):
+        st = dec.init_decode_state(cfg, batch, 12, device="cpu")
+        st["pos"] = torch.randint(0, 12, (batch,), generator=g)
+        for key in ("kv", "rwkv"):
+            if key in st:
+                st[key] = [type(c)(*(torch.randn(a.shape, generator=g)
+                                     if a.is_floating_point() else a
+                                     for a in c)) for c in st[key]]
+        return st
+
+    src, dst = filled(3), filled(2)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        a = {k: _to(v, dev) for k, v in src.items()}
+        b = {k: _to(v, dev) for k, v in dst.items()}
+        buf = dec.pack_decode_slot(dec.extract_decode_slot(a, 2))
+        assert buf.numel() * 4 == dec.decode_slot_bytes(a)
+        b = dec.insert_decode_slot(b, dec.unpack_decode_slot(buf, b), 1)
+        out[dev] = {k: _to(v, "cpu") for k, v in b.items()}
+    for k in out["cpu"]:
+        for x, y in zip(_leaves(out["cpu"][k]), _leaves(out["cuda"][k])):
+            assert torch.equal(x, y), k
+
+
+def _to(v, dev):
+    if isinstance(v, torch.Tensor):
+        return v.to(dev)
+    return [type(c)(*(a.to(dev) for a in c)) for c in v]
+
+
+def _leaves(v):
+    if isinstance(v, torch.Tensor):
+        return [v]
+    return [a for c in v for a in c]

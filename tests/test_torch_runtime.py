@@ -269,7 +269,8 @@ def test_launch_trains_on_a_group_with_memfine(tmp_path):
     (["--production-mesh"], "--production-mesh"),
     (["--model-axis", "2"], "--model-axis/--num-hosts need --data-axis"),
     (["--backend", "gloo"], "--backend needs --data-axis"),
-    (["--data-axis", "2", "--telemetry-record"], "run on one device only"),
+    (["--data-axis", "2", "--telemetry-record", "--production-mesh"],
+     "--production-mesh: the reference's 256-chip mesh is not ported"),
     (["--data-axis", "2", "--dtype", "bfloat16"], "float32 only"),
     (["--capacity-factor", "4", "--memory"],
      "--capacity-factor, --memory need --data-axis"),

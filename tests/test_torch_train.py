@@ -214,15 +214,16 @@ def test_train_cli_runs_dense_and_etp_on_cpu(arch, flags, capsys):
 
 @pytest.mark.parametrize("flags,message", [
     (["--production-mesh"], "not ported yet"),
-    (["--telemetry-record", "--data-axis", "2"], "not ported yet"),
+    (["--telemetry-record", "--production-mesh"], "not ported yet"),
     (["--num-hosts", "2"], "--num-hosts > 1 needs --coordinator"),
-    (["--replication", "--data-axis", "2"], "not ported yet")],
+    (["--replication", "--production-mesh"], "not ported yet")],
     ids=["mesh", "telemetry", "multi-host", "replication"])
 def test_train_cli_refuses_unported_flags(flags, message, capsys):
     """What the launcher still refuses: the reference's production mesh,
-    the telemetry and replication flags on a group of ranks (one device
-    takes them: ``tests/test_torch_telemetry.py``), and a multi-host group
-    without its coordinator (the group itself trains:
+    with the telemetry and replication flags too (one device and a group
+    of ranks take them: ``tests/test_torch_telemetry.py``,
+    ``tests/test_torch_serve_group.py``), and a multi-host group without
+    its coordinator (the group itself trains:
     ``tests/test_torch_runtime.py``)."""
     with pytest.raises(SystemExit):
         train_cli.main(["--arch", "olmoe-1b-7b", "--smoke", "--device",

@@ -5,8 +5,14 @@ held to the reference on, shared by the ``test_torch_*`` parity tests.
 sets it back with ``dataclasses.replace``; each case is built the same way
 for the reference and (through :func:`port_config`) for the port."""
 import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
 
 from repro.configs import get_config
+from repro.models import decoder as rdec
 from repro_torch.configs.base import ArchConfig as TorchArchConfig
 
 
@@ -29,3 +35,32 @@ DENSE_ETP_CASES = {
 def port_config(ref_cfg) -> TorchArchConfig:
     """The port's twin of a reference config, field for field."""
     return TorchArchConfig(**dataclasses.asdict(ref_cfg))
+
+
+def plain(tree):
+    """A tree of dicts, tuples and numpy arrays: what spawned ranks
+    unpickle without importing JAX or the reference."""
+    if isinstance(tree, dict):
+        return {k: plain(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(plain(v) for v in tree)
+    return np.asarray(tree)
+
+
+def reference_params(ref_cfg) -> dict:
+    """The reference session's weights for ``seed=0``, as a plain tree."""
+    return plain(jax.tree_util.tree_map(
+        np.asarray, rdec.init_params(jax.random.PRNGKey(0), ref_cfg,
+                                     jnp.float32)))
+
+
+def canonical(d: dict) -> dict:
+    """A serving report's dict minus every wall-clock-derived field."""
+    d = dict(d)
+    for k in ("wall_s", "gen_tokens_per_s", "tokens_per_s", "latency_ms",
+              "ttft_ms"):
+        d.pop(k)
+    d["per_request"] = [{k: v for k, v in r.items()
+                         if k not in ("latency_ms", "ttft_ms")}
+                        for r in d["per_request"]]
+    return json.loads(json.dumps(d, sort_keys=True))

@@ -169,3 +169,59 @@ def train_rank(mi, device, cfg, params_np, batch, n_micro, cf):
             "nu": {n: ts.opt.nu[n].numpy() for n in names},
             "canonical": {n: v.numpy() for n, v in ts.canonical.items()},
             "expert_names": sorted(dr.hooks.expert_names)}
+
+
+# ------------------------------------------------------------- serving
+
+HOOK = dict(replacement=True, repl_check_every=4, repl_threshold=1.0)
+
+
+def _session_out(sess, rep, mi) -> dict:
+    """What the parent compares of one run: the report, the tokens, the
+    migrations and the rank's working slots after the run."""
+    out = {"report": rep.to_dict(), "tokens": [r.tokens for r in rep.records],
+           "migrations": [(m["step"], m["table"].table)
+                          for m in sess.migration_log]}
+    if sess.dr is not None:
+        out["table"] = sess.dr.placement.table
+        out["working"] = {
+            f"{i}.{w}": getattr(blk.moe, w).numpy()
+            for i, blk in enumerate(sess.model.blocks)
+            for w in ("w_gate", "w_up", "w_down")}
+    if sess.recorder is not None:
+        tr = sess.recorder.trace()
+        out["loads"] = (tr.steps, tr.loads)
+    return out
+
+
+def serve_group_rank(mi, device, cfg, params_np, requests, serve_kw, cf,
+                     disagg_kw, train_args):
+    """Rank side of ``test_torch_serve_group``: the 2 × 2 group session
+    without and with the replacement hook, disaggregated, then
+    ``launch.train``'s group loop without and with telemetry, pre-warm and
+    replication."""
+    from repro_torch.engine import (DisaggConfig, ReplicationConfig,
+                                    ServeConfig, TelemetryConfig)
+    from repro_torch.launch import train as train_cli
+    from repro_torch.serve import ServingSession
+    torch.set_num_threads(1)
+    run_cfg = RuntimeConfig(capacity_factor=cf)
+    out = {"index": mi.index}
+    for name, kw in (("off", {}), ("on", HOOK)):
+        sess = ServingSession(
+            cfg, ServeConfig(**serve_kw, **kw), run_cfg=run_cfg, mesh=mi,
+            device="cpu", params_np=params_np,
+            telemetry=TelemetryConfig(record=True) if kw else None)
+        out[name + "_table0"] = sess.dr.placement.table
+        out[name] = _session_out(sess, sess.run(requests), mi)
+    sess = ServingSession(cfg, ServeConfig(**serve_kw), run_cfg=run_cfg,
+                          mesh=mi, device="cpu", params_np=params_np,
+                          disagg=DisaggConfig(**disagg_kw))
+    out["disagg"] = _session_out(sess, sess.run(requests), mi)
+    args, telemetry, replication = train_args
+    for name, tel, rep in (("train", None, None),
+                           ("train_hooks", TelemetryConfig(**telemetry),
+                            ReplicationConfig(**replication))):
+        out[name] = train_cli._group_rank(mi, device, args, cfg, run_cfg,
+                                          tel, rep)
+    return out
