@@ -293,7 +293,37 @@ Phases, in order; any failure raises and exits nonzero:
      identical canonical rows after every step, K1, K1b and K4 16 times a
      rank, the losses and gradient norms within phase 23 (c)'s limits of
      its run without the flags.  The kernels line counts these launches in.
-Phases 17-24 print each part's wall time, peak memory and kernel launches.
+ 25. elastic fleets and fault recovery in serving, olmoe-1b-7b
+     (``launch/check_fleet.py``): (a) served at full width and depth on one
+     device by a fleet of 2-3 groups of one device (64 replica slots each,
+     so that the fewest groups, and the survivors of a crash, host all 64
+     experts; queue-depth scaling checked every 4 steps, a drain's grace 2
+     steps), a crash of the newest group at step 12 and a straggler from
+     step 2 for 6 steps, 8 requests at step 0 and 3 from step 60 (prompts
+     of 3-6 tokens, 8 generated): at least one admit, drain, crash and
+     straggler deflate and restore; every request served once; the tokens
+     of the same requests without the fleet, or each differing token a
+     near tie; K1 and K4 once a MoE layer a decode step, no plain version;
+     the fleet's and the faults' events, step for step, those of the same
+     config on the CPU on paper-gpt-32x1.3b smoke (4 slots a device) on a
+     fake clock; (b) disaggregated at full size (4 + 4 slots, depth 2)
+     with every handoff of steps 1-4 failing: every request generates its
+     full count, failures >= 1; (c) inside phase 24's four ranks, the
+     fleet of (a) with its faults at 4 layers on the 2 × 2 group: every
+     rank's ``fleet`` and ``resilience`` blocks equal to rank 0's, the
+     tokens equal to one device's; (d) every placement the controller held
+     in (a), with its weights (a draining device's budget zero, a
+     straggler's weight deflated), scheduled by K4 on (a)'s recorded loads
+     split over the devices: bit for bit the plain version, the weighted
+     max load over the weighted LP's optimum; (e) ``reshard_params`` on
+     the card on olmoe's expert weights at full width, 4 layers, from one
+     held placement to another and back, bit for bit the direct gather,
+     and one layer through a checkpoint file and ``restore_resharded``;
+     (f) one MoE layer call timed at 256 tokens, written as the planner's
+     rows (``build/fleet/moe_layer_rows.json``), and ``launch.fleet plan``
+     and ``replay`` on (a)'s trace: the plan equal to ``plan_capacity``'s.
+     The kernels line counts (a)-(c)'s launches in.
+Phases 17-25 print each part's wall time, peak memory and kernel launches.
 The last two lines are the kernels' JSON record and the result object.
 """
 from __future__ import annotations
@@ -2244,10 +2274,11 @@ def phase_disagg_parity(cfg, device) -> None:
 
 
 def phase_group_serve(device, tmp: pathlib.Path, plain_train: list) -> dict:
-    """24 (a), (d) on four ranks, after their one-device references; then
-    (b) through ``launch/train`` held to phase 23 (c)'s records
-    (``plain_train``) -> the ranks' launches: {"serve": K1's and K4's in
-    (a) and (d), "train": K1's, K1b's and K4's in (b)}."""
+    """24 (a), (d) and 25 (c) on four ranks, after their one-device
+    references; then 24 (b) through ``launch/train`` held to phase 23
+    (c)'s records (``plain_train``) -> the ranks' launches: {"serve": K1's
+    and K4's in 24 (a) and (d), "fleet": in 25 (c), "train": K1's, K1b's
+    and K4's in 24 (b)}."""
     from repro_torch.launch import check_group
     from repro_torch.launch import train as train_cli
     from repro_torch.launch.mesh import spawn_group
@@ -2259,7 +2290,7 @@ def phase_group_serve(device, tmp: pathlib.Path, plain_train: list) -> dict:
     recs = spawn_group(check_group.serve_checks, (0, str(tmp)), 2, 2,
                        backend="gloo", device="cuda")
     print(f"  [24 (a), (d)] four ranks in {time.perf_counter() - t0:.1f} s")
-    launched = {"serve": {"K1": 0, "K4": 0},
+    launched = {"serve": {"K1": 0, "K4": 0}, "fleet": {"K1": 0, "K4": 0},
                 "train": {"K1": 0, "K1b": 0, "K4": 0}}
     for r in recs:
         off, on, dg = r["off"], r["on"], r["disagg"]
@@ -2288,6 +2319,23 @@ def phase_group_serve(device, tmp: pathlib.Path, plain_train: list) -> dict:
                 and dg["fields"] == ref["fields"],
                 f"rank {r['index']}: the group's disaggregated run differs "
                 f"from one device's: {dg['fields']} against {ref['fields']}")
+        fl, fl0 = r["fleet"]["report"], recs[0]["fleet"]["report"]
+        for k, v in r["fleet"]["launches"].items():
+            launched["fleet"][k] += v
+        print(f"  [25 (c)] rank {r['index']}: {r['fleet']['decode_steps']} "
+              f"decode steps in {r['fleet']['wall_s']:.1f} s, "
+              f"{fl['fleet']['admits']} admits, {fl['fleet']['drains']} "
+              f"drains, {fl['resilience']['crashes']} crash, "
+              f"{fl['resilience']['straggler_deflations']} deflation; "
+              f"launches {r['fleet']['launches']}, peak "
+              f"{r['fleet']['peak_gib']:.2f} GiB")
+        require(fl["fleet"] == fl0["fleet"]
+                and fl["resilience"] == fl0["resilience"],
+                f"rank {r['index']}'s fleet or resilience block differs "
+                f"from rank 0's")
+        require(r["fleet"]["tokens"] == ref["fleet"],
+                f"rank {r['index']}: the group's fleet run's tokens differ "
+                f"from one device's")
     report = tmp / "group_train_hooks"
     args = ["--arch", "olmoe-1b-7b", "--layers", "2", "--batch", "8",
             "--seq", "512", "--n-micro", "2", "--steps", str(GROUP_STEPS),
@@ -2341,6 +2389,87 @@ def phase_group_serve(device, tmp: pathlib.Path, plain_train: list) -> dict:
                                             LATER_LOSS)):
         require(v < limit, f"(b) {k} off by {v:.3e} (limit {limit})")
     return launched
+
+
+# ------------------ phase 25: elastic fleets and fault recovery in serving
+
+
+def phase_fleet(cfg, device, tmp: pathlib.Path) -> dict:
+    """25 (a), (b), (d)-(f) on one device (``launch/check_fleet.py``; its
+    checks raise) -> the launches of (a) and (b): {"K1": n, "K4": n}."""
+    from repro_torch.kernels.grouped_matmul import grouped_ffn_flat_cuda
+    from repro_torch.kernels.sched import schedule_cuda
+    from repro_torch.launch import check_fleet as F
+    from repro_torch.models import decoder as dec
+    from repro_torch.telemetry import LoadTrace
+
+    def main_path():
+        zero_counts(grouped_ffn_flat_cuda, schedule_cuda)
+    with phase_stats("25 (a) a fleet that admits, drains, crashes and "
+                     "straggles, full size"):
+        model = dec.init_params(cfg, seed=0, device=device)
+        a = F.serve_fleet(model, tmp, zero_counts=main_path)
+    d = a["report"]
+    fl, res = d["fleet"], d["resilience"]
+    deflate = [e for e in res["events"] if e["kind"] == "straggler_deflate"]
+    print(f"  (a) {len(d['per_request'])} requests in {a['steps']} steps "
+          f"({a['decode_steps']} decode steps) in {a['wall_s']:.2f} s "
+          f"({a['wall_s'] / a['decode_steps'] * 1e3:.1f} ms a step); fleet "
+          f"peak {fl['peak_groups']} groups, {fl['admits']} admits, "
+          f"{fl['drains']} drains, {fl['crashes']} crash, "
+          f"{fl['moved_slots']} slots moved ({fl['migration_bytes']} B), "
+          f"{fl['device_steps']} device-steps; {res['requeues']} requeues, "
+          f"{len(res['failed_requests'])} failed, deflations "
+          f"{[(e['step'], e['group'], e['multiplier']) for e in deflate]}; "
+          f"launches {a['launches']}; tokens without the fleet: "
+          f"{'equal' if not a['ties'] else a['ties']}")
+    events = a["events"]["fleet"] + [e for e in a["events"]["resilience"]
+                                     if e["kind"] != "crash"]
+    print(f"  (a) events, equal step for step to the CPU twin's: "
+          + "; ".join(f"{e['step']} {e['kind']} g{e['group']}"
+                      for e in sorted(events, key=lambda e: e["step"])))
+    with phase_stats("25 (b) failed handoffs, full size"):
+        b = F.serve_transfer(model, zero_counts=main_path)
+    r, dg = b["report"]["resilience"], b["report"]["disagg"]
+    print(f"  (b) {len(b['report']['per_request'])} requests in "
+          f"{b['steps']} steps, {b['wall_s']:.2f} s; {r['transfer_failures']}"
+          f" failed handoffs ({r['transfer_retries']} of a retried "
+          f"attempt), {dg['transferred']} transferred; launches K1 "
+          f"{b['K1']}, K4 {b['K4']}")
+    del model
+    torch.cuda.empty_cache()
+    with phase_stats("25 (d) K4 on every placement the fleet held"):
+        rows = F.k4_on_placements(a["held"], LoadTrace.load(str(a["trace"])),
+                                  cfg.num_layers)
+    for row in rows:
+        print(f"  (d) from step {row['step']}: {row['devices']} devices "
+              f"({row['empty_devices']} empty), weights {row['weights']}, "
+              f"most replicas {row['replicas_max']}; K4 = plain on "
+              f"{row['batches']} steps' loads, max load over the LP's "
+              + ", ".join(f"{x:.4f}" for x in row["max_load_over_lp"]))
+    torch.cuda.empty_cache()
+    with phase_stats("25 (e) reshard on the card"):
+        e = F.reshard_on_card(a["held"], device, tmp)
+    print(f"  (e) {e['old']} -> {e['new']} and back, 3 weights x "
+          f"{F.RESHARD_LAYERS} layers: bit for bit, {e['gather_s']:.3f} s "
+          f"for the forward gathers; one layer through a "
+          f"{e['file_bytes']} B checkpoint file in {e['file_s']:.1f} s")
+    torch.cuda.empty_cache()
+    with phase_stats("25 (f) a MoE layer's time; plan and replay"):
+        layer = F.time_layer(device)
+        f = F.plan_and_replay(a["trace"], F.ROWS)
+    best = f["plan"]["best"]
+    print(f"  (f) one MoE layer call at {F.LAYER_TOKENS} tokens: "
+          f"{[row['us'] for row in layer['rows']]} us, "
+          f"{layer['us_per_token']:.4f} us a token; plan at slo "
+          f"{f['slo_ms']} ms: {best['groups']} group(s), elastic cost "
+          f"{f['plan']['elastic_cost']} against static "
+          f"{f['plan']['static_cost']}, schedule "
+          f"{[(s['step'], s['groups']) for s in f['plan']['schedule']]}; "
+          f"replay {f['replay']['admits']} admits, {f['replay']['drains']} "
+          f"drains, {f['replay']['device_steps']} device-steps")
+    return {"K1": a["launches"]["K1"] + b["K1"],
+            "K4": a["launches"]["K4"] + b["K4"]}
 
 
 def main() -> int:
@@ -2553,6 +2682,14 @@ def main() -> int:
                        + launched["train"]["K4"])
     k1_olmoe_train["launches"] += launched["train"]["K1"]
     k1b["launches"] += launched["train"]["K1b"]
+    torch.cuda.empty_cache()
+
+    print("[25] elastic fleets and fault recovery in serving: olmoe-1b-7b")
+    with tempfile.TemporaryDirectory() as tmp:
+        fleet = phase_fleet(olmoe, device, pathlib.Path(tmp))
+    # (a), (b) and (c)'s ranks: K4 and K1 once a MoE layer a decode step
+    record["launches"] += fleet["K1"] + launched["fleet"]["K1"]
+    k4["launches"] += fleet["K4"] + launched["fleet"]["K4"]
     print(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     print(card)

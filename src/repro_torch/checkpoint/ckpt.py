@@ -78,13 +78,16 @@ def _to_numpy(leaf: Any) -> np.ndarray:
 
 
 def save_checkpoint(directory: str, step: int, tree: Any,
-                    metadata: Optional[dict] = None) -> str:
+                    metadata: Optional[dict] = None,
+                    compress: bool = True) -> str:
     """Write ``tree`` to ``directory/ckpt_<step>.npz`` (+ .json metadata);
-    -> the npz's path."""
+    -> the npz's path.  ``compress=False`` stores the arrays deflated not
+    at all (``np.savez``; the reference reads both): random f32 weights do
+    not compress, and deflating GBs of them takes minutes."""
     os.makedirs(directory, exist_ok=True)
     payload = {key: _to_numpy(leaf) for key, leaf in _leaves(tree)}
     base = os.path.join(directory, f"ckpt_{step:08d}")
-    np.savez_compressed(base + ".npz", **payload)
+    (np.savez_compressed if compress else np.savez)(base + ".npz", **payload)
     meta = dict(metadata or {})
     meta["step"] = step
     meta["num_leaves"] = len(payload)
@@ -104,11 +107,17 @@ def _open_payload(path: str):
             f"checkpoint {path!r} is corrupt or truncated: {e}") from e
 
 
-def restore_checkpoint(path: str, template: Any) -> Any:
+def restore_checkpoint(path: str, template: Any, *,
+                       validate_shapes: bool = True) -> Any:
     """Restore into the structure of ``template``: each leaf comes back in
     its template leaf's type, a numpy array for a numpy leaf and a tensor
     on the template tensor's device for a tensor.  A leaf the file lacks
-    raises ``KeyError``, a leaf of another shape ``ValueError``."""
+    raises ``KeyError``, a leaf of another shape ``ValueError``.
+
+    ``validate_shapes=False`` skips the per-leaf shape check (dtypes are
+    still cast) — for callers that reshard the result across a placement
+    change (``resilience.reshard.restore_resharded``) before shapes can
+    match."""
     with _open_payload(path) as data:
         arrays = {}
         for key, leaf in _leaves(template):
@@ -120,7 +129,7 @@ def restore_checkpoint(path: str, template: Any) -> Any:
                 raise CheckpointError(
                     f"checkpoint {path!r} is corrupt or truncated "
                     f"(leaf {key!r}): {e}") from e
-            if arr.shape != tuple(np.shape(leaf)):
+            if validate_shapes and arr.shape != tuple(np.shape(leaf)):
                 raise ValueError(
                     f"shape mismatch at {key}: ckpt {arr.shape} vs "
                     f"template {tuple(np.shape(leaf))}")

@@ -1,6 +1,7 @@
 """Engine facade, typed configuration and the plugin registries."""
-from .config import (ConfigError, DeviceProfile, DisaggConfig, MemoryConfig,
-                     PlacementSpec, ReplicationConfig, RuntimeConfig,
+from .config import (ConfigError, DeviceProfile, DisaggConfig, FleetConfig,
+                     MemoryConfig, PlacementSpec, ReplicationConfig,
+                     ResilienceConfig, RuntimeConfig,
                      SchedulePolicy, ServeConfig, TelemetryConfig,
                      profile_slot_budgets, profile_weights)
 from .registry import (Registry, RegistryError, baseline_systems,
@@ -9,8 +10,10 @@ from .registry import (Registry, RegistryError, baseline_systems,
                        register_placement_strategy)
 from .engine import MicroEPEngine
 
-__all__ = ["ConfigError", "DeviceProfile", "DisaggConfig", "MemoryConfig",
+__all__ = ["ConfigError", "DeviceProfile", "DisaggConfig", "FleetConfig",
+           "MemoryConfig",
            "MicroEPEngine", "PlacementSpec", "Registry", "RegistryError", "ReplicationConfig",
+           "ResilienceConfig",
            "RuntimeConfig",
            "SchedulePolicy", "ServeConfig", "TelemetryConfig",
            "baseline_systems", "get_baseline_system",

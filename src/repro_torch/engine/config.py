@@ -1,8 +1,8 @@
 """Typed configuration of the port's engine and serving path (the port's
 copy of ``PlacementSpec``, ``DeviceProfile``, the device-profile helpers,
 ``SchedulePolicy``, ``MemoryConfig``, ``RuntimeConfig``, ``ServeConfig``,
-``TelemetryConfig``, ``ReplicationConfig`` and ``DisaggConfig`` from
-``repro.engine.config``).
+``TelemetryConfig``, ``ReplicationConfig``, ``DisaggConfig``,
+``FleetConfig`` and ``ResilienceConfig`` from ``repro.engine.config``).
 Each validates at construction (errors list the accepted options) and
 round-trips through ``to_dict``/``from_dict``."""
 from __future__ import annotations
@@ -15,8 +15,8 @@ import numpy as np
 
 __all__ = ["ConfigError", "DeviceProfile", "DisaggConfig", "PlacementSpec",
            "SchedulePolicy", "MemoryConfig", "RuntimeConfig", "ServeConfig",
-           "TelemetryConfig", "ReplicationConfig",
-           "profile_weights", "profile_slot_budgets"]
+           "TelemetryConfig", "ReplicationConfig", "FleetConfig",
+           "ResilienceConfig", "profile_weights", "profile_slot_budgets"]
 
 
 class ConfigError(ValueError):
@@ -1009,6 +1009,388 @@ class DisaggConfig:
         if self.decode_profiles is not None:
             flags += ["--decode-profiles",
                       ",".join(p.to_cli() for p in self.decode_profiles)]
+        return flags
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """Elastic fleet control configuration (FLEET.md, DESIGN.md §14).
+
+    enabled              — admit/drain device groups at runtime on the
+                           serving step clock via the ``repro_torch.fleet``
+                           controller.  False (default): the fleet is
+                           static and serving runs bit-identically to the
+                           pre-fleet path.
+    scaling_policy       — key of ``repro_torch.fleet.scaling_policies``
+                           (built-ins: target_utilization, queue_depth,
+                           step_latency_slo).
+    min_groups           — floor on concurrently active device groups;
+                           drains never go below it.
+    max_groups           — ceiling on device groups; also sizes the fixed
+                           physical batch width (max_groups *
+                           slots_per_group decode slots) so elastic
+                           capacity changes never recompile the step.
+    scale_check_every    — serving steps between scaling-policy checks.
+    drain_grace_steps    — minimum steps between marking a group departing
+                           and removing it; a drain additionally waits for
+                           the group's decode slots to empty (sequences
+                           finish in place, never dropped).
+    slots_per_group      — decode slots each group contributes to the
+                           serving batch.
+    group_profiles       — :class:`DeviceProfile` tuple of *one* group's
+                           devices (every group is built from this mix;
+                           same forms as ``RuntimeConfig.device_profiles``).
+                           None = one weight-1 device per group.
+    scale_up_threshold   — policy pressure (utilization fraction, queue
+                           per-slot pressure, or latency/SLO ratio) above
+                           which a group is admitted.
+    scale_down_threshold — pressure below which a group is drained.
+    latency_slo_ms       — step-latency SLO for the step_latency_slo
+                           policy (required by it; pressure = observed
+                           step latency / SLO).
+    """
+
+    enabled: bool = False
+    scaling_policy: str = "target_utilization"
+    min_groups: int = 1
+    max_groups: int = 4
+    scale_check_every: int = 16
+    drain_grace_steps: int = 8
+    slots_per_group: int = 2
+    group_profiles: Optional[Tuple[DeviceProfile, ...]] = None
+    scale_up_threshold: float = 0.9
+    scale_down_threshold: float = 0.35
+    latency_slo_ms: Optional[float] = None
+
+    def __post_init__(self):
+        if not isinstance(self.scaling_policy, str) or not self.scaling_policy:
+            raise ConfigError(
+                f"FleetConfig.scaling_policy must be a non-empty registry "
+                f"key, got {self.scaling_policy!r}")
+        for name in ("min_groups", "max_groups", "scale_check_every",
+                     "slots_per_group"):
+            v = getattr(self, name)
+            if not isinstance(v, (int, np.integer)) or v < 1:
+                raise ConfigError(
+                    f"FleetConfig.{name} must be a positive int, got {v!r}")
+        if not isinstance(self.drain_grace_steps, (int, np.integer)) or \
+                self.drain_grace_steps < 0:
+            raise ConfigError(
+                f"FleetConfig.drain_grace_steps must be an int >= 0, "
+                f"got {self.drain_grace_steps!r}")
+        if self.max_groups < self.min_groups:
+            raise ConfigError(
+                f"FleetConfig.max_groups={self.max_groups} cannot be below "
+                f"min_groups={self.min_groups}")
+        if not 0 < self.scale_down_threshold < self.scale_up_threshold:
+            raise ConfigError(
+                f"FleetConfig thresholds must satisfy 0 < "
+                f"scale_down_threshold < scale_up_threshold, got "
+                f"{self.scale_down_threshold!r} / "
+                f"{self.scale_up_threshold!r}")
+        if self.latency_slo_ms is not None and not self.latency_slo_ms > 0:
+            raise ConfigError(
+                f"FleetConfig.latency_slo_ms must be > 0 (or None), "
+                f"got {self.latency_slo_ms!r}")
+        object.__setattr__(self, "group_profiles",
+                           _canonical_profiles(self.group_profiles))
+
+    @property
+    def devices_per_group(self) -> int:
+        return 1 if self.group_profiles is None else len(self.group_profiles)
+
+    # --------------------------------------------------- dict round-trip
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        if self.group_profiles is not None:
+            d["group_profiles"] = [p.to_dict() for p in self.group_profiles]
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "FleetConfig":
+        return cls(**_known_fields(cls, d))
+
+    # ---------------------------------------------------- CLI round-trip
+    @staticmethod
+    def add_cli_args(parser: argparse.ArgumentParser,
+                     defaults: "FleetConfig" = None) -> None:
+        d = defaults if defaults is not None else FleetConfig()
+        b = argparse.BooleanOptionalAction
+        g = parser.add_argument_group("fleet")
+        g.add_argument("--fleet", action=b, default=d.enabled,
+                       help="elastic fleet control: admit/drain device "
+                            "groups on the serving step clock (FLEET.md)")
+        g.add_argument("--scaling-policy", default=d.scaling_policy,
+                       help="scaling policy (registry key; built-ins: "
+                            "target_utilization, queue_depth, "
+                            "step_latency_slo)")
+        g.add_argument("--min-groups", type=int, default=d.min_groups)
+        g.add_argument("--max-groups", type=int, default=d.max_groups)
+        g.add_argument("--scale-check-every", type=int,
+                       default=d.scale_check_every)
+        g.add_argument("--drain-grace-steps", type=int,
+                       default=d.drain_grace_steps)
+        g.add_argument("--slots-per-group", type=int,
+                       default=d.slots_per_group)
+        g.add_argument("--group-profiles",
+                       default=(",".join(p.to_cli()
+                                         for p in d.group_profiles)
+                                if d.group_profiles else None),
+                       help="'weight[@slots]' device list of one fleet "
+                            "group (DESIGN.md §11 form); every group uses "
+                            "this mix")
+        g.add_argument("--scale-up-threshold", type=float,
+                       default=d.scale_up_threshold)
+        g.add_argument("--scale-down-threshold", type=float,
+                       default=d.scale_down_threshold)
+        g.add_argument("--latency-slo-ms", type=float,
+                       default=d.latency_slo_ms,
+                       help="step-latency SLO for the step_latency_slo "
+                            "scaling policy")
+
+    @classmethod
+    def from_cli_args(cls, args: argparse.Namespace) -> "FleetConfig":
+        return cls(enabled=args.fleet,
+                   scaling_policy=args.scaling_policy,
+                   min_groups=args.min_groups,
+                   max_groups=args.max_groups,
+                   scale_check_every=args.scale_check_every,
+                   drain_grace_steps=args.drain_grace_steps,
+                   slots_per_group=args.slots_per_group,
+                   group_profiles=args.group_profiles,
+                   scale_up_threshold=args.scale_up_threshold,
+                   scale_down_threshold=args.scale_down_threshold,
+                   latency_slo_ms=args.latency_slo_ms)
+
+    def to_cli_args(self) -> list:
+        """Flag list such that ``from_cli_args(parser.parse_args(...))``
+        reproduces this config."""
+        flags = [
+            "--fleet" if self.enabled else "--no-fleet",
+            "--scaling-policy", self.scaling_policy,
+            "--min-groups", str(self.min_groups),
+            "--max-groups", str(self.max_groups),
+            "--scale-check-every", str(self.scale_check_every),
+            "--drain-grace-steps", str(self.drain_grace_steps),
+            "--slots-per-group", str(self.slots_per_group),
+            "--scale-up-threshold", str(self.scale_up_threshold),
+            "--scale-down-threshold", str(self.scale_down_threshold),
+        ]
+        if self.group_profiles is not None:
+            flags += ["--group-profiles",
+                      ",".join(p.to_cli() for p in self.group_profiles)]
+        if self.latency_slo_ms is not None:
+            flags += ["--latency-slo-ms", str(self.latency_slo_ms)]
+        return flags
+
+
+def _canonical_steps(value, name: str) -> Tuple[int, ...]:
+    """Canonicalise a step list: tuple/list of ints or a 'a,b,c' CSV
+    string (CLI form) -> sorted tuple of distinct non-negative ints."""
+    if value is None:
+        return ()
+    if isinstance(value, str):
+        value = [s for s in value.split(",") if s.strip()]
+    try:
+        steps = sorted({int(v) for v in value})
+    except (TypeError, ValueError):
+        raise ConfigError(
+            f"{name} must be ints or a comma-separated int list, "
+            f"got {value!r}")
+    if steps and steps[0] < 0:
+        raise ConfigError(f"{name} entries must be >= 0, got {steps[0]}")
+    return tuple(steps)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResilienceConfig:
+    """Fault injection + recovery configuration (RESILIENCE.md,
+    DESIGN.md §15).
+
+    enabled              — arm the fault injector and recovery machinery
+                           on the serving step clock.  False (default):
+                           serving runs bit-identically to the
+                           pre-resilience path (golden fixture pin).
+    seed                 — RNG seed for the random-rate fault draws
+                           (scripted ``*_steps`` events are exact and
+                           need no seed).
+    crash_steps          — serving steps at which the newest live device
+                           group crashes unplanned: its capacity vanishes
+                           *now* and in-flight requests on it lose their
+                           KV (contrast FLEET.md graceful drains).
+    crash_rate           — per-step probability of such a crash.
+    straggler_steps      — steps at which a straggler window opens on one
+                           live group: its step latency inflates by
+                           ``straggler_factor`` for ``straggler_window``
+                           steps, then recovers.
+    straggler_rate       — per-step probability of a straggler onset.
+    straggler_factor     — step-latency inflation of a straggling group.
+    straggler_window     — straggler duration in serving steps.
+    straggler_threshold  — a group whose step-latency EWMA exceeds this
+                           multiple of the fleet median has its LP weight
+                           deflated (degraded-mode scheduling, DESIGN.md
+                           §11 weighted LP); restored on recovery.
+    max_retries          — crash victims re-enqueue at the FIFO head for
+                           re-prefill at most this many times before the
+                           explicit ``failed`` terminal state (never
+                           silent loss).
+    transfer_fail_steps  — steps on which every disagg handoff-transfer
+                           attempt fails (SERVING.md handoff buffer).
+    transfer_fail_rate   — per-attempt probability of a transfer failure.
+    retry_backoff_steps  — base of the capped exponential backoff between
+                           transfer retries (backoff = base * 2^(n-1)).
+    max_transfer_retries — cap on the backoff *exponent*; retries
+                           themselves never stop — back-pressure, not
+                           drop.
+    """
+
+    enabled: bool = False
+    seed: int = 0
+    crash_steps: Tuple[int, ...] = ()
+    crash_rate: float = 0.0
+    straggler_steps: Tuple[int, ...] = ()
+    straggler_rate: float = 0.0
+    straggler_factor: float = 4.0
+    straggler_window: int = 16
+    straggler_threshold: float = 2.0
+    max_retries: int = 3
+    transfer_fail_steps: Tuple[int, ...] = ()
+    transfer_fail_rate: float = 0.0
+    retry_backoff_steps: int = 2
+    max_transfer_retries: int = 5
+
+    def __post_init__(self):
+        for name in ("crash_steps", "straggler_steps", "transfer_fail_steps"):
+            object.__setattr__(self, name, _canonical_steps(
+                getattr(self, name), f"ResilienceConfig.{name}"))
+        for name in ("crash_rate", "straggler_rate", "transfer_fail_rate"):
+            v = getattr(self, name)
+            if not 0.0 <= v <= 1.0:
+                raise ConfigError(
+                    f"ResilienceConfig.{name} must be in [0, 1], got {v!r}")
+        if not self.straggler_factor > 1.0:
+            raise ConfigError(
+                f"ResilienceConfig.straggler_factor must be > 1, "
+                f"got {self.straggler_factor!r}")
+        if not self.straggler_threshold > 1.0:
+            raise ConfigError(
+                f"ResilienceConfig.straggler_threshold must be > 1, "
+                f"got {self.straggler_threshold!r}")
+        for name, lo in (("straggler_window", 1), ("max_retries", 0),
+                         ("retry_backoff_steps", 1),
+                         ("max_transfer_retries", 0), ("seed", 0)):
+            v = getattr(self, name)
+            if not isinstance(v, (int, np.integer)) or v < lo:
+                raise ConfigError(
+                    f"ResilienceConfig.{name} must be an int >= {lo}, "
+                    f"got {v!r}")
+
+    @property
+    def has_group_faults(self) -> bool:
+        """Crash/straggler faults configured — these need a fleet."""
+        return bool(self.crash_steps or self.crash_rate > 0 or
+                    self.straggler_steps or self.straggler_rate > 0)
+
+    @property
+    def has_transfer_faults(self) -> bool:
+        """Handoff-transfer faults configured — these need disagg."""
+        return bool(self.transfer_fail_steps or self.transfer_fail_rate > 0)
+
+    # --------------------------------------------------- dict round-trip
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        for name in ("crash_steps", "straggler_steps", "transfer_fail_steps"):
+            d[name] = list(d[name])
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "ResilienceConfig":
+        return cls(**_known_fields(cls, d))
+
+    # ---------------------------------------------------- CLI round-trip
+    @staticmethod
+    def add_cli_args(parser: argparse.ArgumentParser,
+                     defaults: "ResilienceConfig" = None) -> None:
+        d = defaults if defaults is not None else ResilienceConfig()
+        b = argparse.BooleanOptionalAction
+
+        def csv(steps):
+            return ",".join(str(s) for s in steps) if steps else None
+
+        g = parser.add_argument_group("resilience")
+        g.add_argument("--resilience", action=b, default=d.enabled,
+                       help="fault injection + recovery on the serving "
+                            "step clock (RESILIENCE.md)")
+        g.add_argument("--fault-seed", type=int, default=d.seed,
+                       help="seed for random-rate fault draws")
+        g.add_argument("--crash-at-steps", default=csv(d.crash_steps),
+                       help="comma list of steps at which the newest live "
+                            "group crashes unplanned")
+        g.add_argument("--crash-rate", type=float, default=d.crash_rate)
+        g.add_argument("--straggler-at-steps",
+                       default=csv(d.straggler_steps),
+                       help="comma list of straggler-onset steps")
+        g.add_argument("--straggler-rate", type=float,
+                       default=d.straggler_rate)
+        g.add_argument("--straggler-factor", type=float,
+                       default=d.straggler_factor)
+        g.add_argument("--straggler-window", type=int,
+                       default=d.straggler_window)
+        g.add_argument("--straggler-threshold", type=float,
+                       default=d.straggler_threshold)
+        g.add_argument("--max-retries", type=int, default=d.max_retries,
+                       help="crash-victim re-prefill retries before the "
+                            "explicit failed terminal state")
+        g.add_argument("--transfer-fail-at-steps",
+                       default=csv(d.transfer_fail_steps),
+                       help="comma list of steps on which handoff "
+                            "transfers fail")
+        g.add_argument("--transfer-fail-rate", type=float,
+                       default=d.transfer_fail_rate)
+        g.add_argument("--retry-backoff-steps", type=int,
+                       default=d.retry_backoff_steps)
+        g.add_argument("--max-transfer-retries", type=int,
+                       default=d.max_transfer_retries)
+
+    @classmethod
+    def from_cli_args(cls, args: argparse.Namespace) -> "ResilienceConfig":
+        return cls(enabled=args.resilience,
+                   seed=args.fault_seed,
+                   crash_steps=args.crash_at_steps,
+                   crash_rate=args.crash_rate,
+                   straggler_steps=args.straggler_at_steps,
+                   straggler_rate=args.straggler_rate,
+                   straggler_factor=args.straggler_factor,
+                   straggler_window=args.straggler_window,
+                   straggler_threshold=args.straggler_threshold,
+                   max_retries=args.max_retries,
+                   transfer_fail_steps=args.transfer_fail_at_steps,
+                   transfer_fail_rate=args.transfer_fail_rate,
+                   retry_backoff_steps=args.retry_backoff_steps,
+                   max_transfer_retries=args.max_transfer_retries)
+
+    def to_cli_args(self) -> list:
+        """Flag list such that ``from_cli_args(parser.parse_args(...))``
+        reproduces this config."""
+        flags = [
+            "--resilience" if self.enabled else "--no-resilience",
+            "--fault-seed", str(self.seed),
+            "--crash-rate", str(self.crash_rate),
+            "--straggler-rate", str(self.straggler_rate),
+            "--straggler-factor", str(self.straggler_factor),
+            "--straggler-window", str(self.straggler_window),
+            "--straggler-threshold", str(self.straggler_threshold),
+            "--max-retries", str(self.max_retries),
+            "--transfer-fail-rate", str(self.transfer_fail_rate),
+            "--retry-backoff-steps", str(self.retry_backoff_steps),
+            "--max-transfer-retries", str(self.max_transfer_retries),
+        ]
+        for flag, steps in (("--crash-at-steps", self.crash_steps),
+                            ("--straggler-at-steps", self.straggler_steps),
+                            ("--transfer-fail-at-steps",
+                             self.transfer_fail_steps)):
+            if steps:
+                flags += [flag, ",".join(str(s) for s in steps)]
         return flags
 
 

@@ -36,6 +36,14 @@ are made first, by :func:`serve_references`):
       disaggregated on the group, its report returned for the caller to
       hold to the one-device run's.
 
+Phase 25 (c) on the same ranks: olmoe-1b-7b at full width and
+``DISAGG_LAYERS`` layers served by the group with ``check_fleet``'s elastic
+fleet and faults (a crash at step 12, a straggler from step 2), on each
+rank's own clock: K4 and K1 once a layer a decode step; its tokens and its
+``fleet`` and ``resilience`` blocks returned for the caller to hold to
+rank 0's (every latency-driven decision reads the ranks' largest wall)
+and the tokens to the one-device run's.
+
   PYTHONPATH=src python -m repro_torch.launch.check_group   # on the card
 
 Each rank returns its record (times, counts, peak memory) and raises on
@@ -52,7 +60,8 @@ import numpy as np
 import torch
 
 from ..configs import get_config
-from ..engine import DisaggConfig, MicroEPEngine, RuntimeConfig, ServeConfig
+from ..engine import (DisaggConfig, FleetConfig, MicroEPEngine,
+                      ResilienceConfig, RuntimeConfig, ServeConfig)
 from ..models import decoder as dec
 from ..models.layers.attention import KVCache
 from ..kernels.grouped_matmul import grouped_ffn_flat_cuda
@@ -65,6 +74,7 @@ from ..moe.router import top_k_gating
 from ..moe.sync import (build_sync_plan, canonical_to_working,
                         working_grads_to_canonical)
 from ..serve import ServingSession, poisson_trace
+from . import check_fleet
 from . import runtime as R
 from .check_train import count_plain_calls
 
@@ -346,8 +356,9 @@ def serve_references(device, seed: int, ref_dir) -> dict:
     """The one-device references of (a) and (d), made on this process
     before the ranks start and freed: (a)'s decode step (``REF_STEPS``
     steps of 8 slots from zero caches, the state before the last and its
-    logits saved to ``ref_dir``/decode.pt) and (d)'s disaggregated run at
-    ``DISAGG_LAYERS`` layers (its tokens and fields returned)."""
+    logits saved to ``ref_dir``/decode.pt), (d)'s disaggregated run at
+    ``DISAGG_LAYERS`` layers (its tokens and fields returned) and phase 25
+    (c)'s fleet run at ``DISAGG_LAYERS`` layers (its tokens, "fleet")."""
     ref_dir = pathlib.Path(ref_dir)
     cfg = serve_config(SERVE_LAYERS)
     model = dec.init_params(cfg, seed=seed, device=device)
@@ -374,10 +385,23 @@ def serve_references(device, seed: int, ref_dir) -> dict:
     sess = ServingSession(cfg4, ServeConfig(**SERVE), seed=seed,
                           device=device, disagg=DisaggConfig(**DISAGG))
     rep = sess.run(serve_requests(cfg4, disagg=True))
+    sess = _fleet_session(cfg4, seed, device)
+    fleet = sess.run(check_fleet.fleet_requests(cfg4.vocab))
     del sess
     torch.cuda.empty_cache()
     return {"tokens": [r.tokens for r in rep.records],
-            "fields": step_fields(rep.to_dict())}
+            "fields": step_fields(rep.to_dict()),
+            "fleet": [r.tokens for r in fleet.records]}
+
+
+def _fleet_session(cfg, seed: int, device, mi=None) -> ServingSession:
+    """Phase 25 (c)'s session: ``check_fleet``'s fleet and faults, on one
+    device or (``mi``) this rank of the group."""
+    return ServingSession(
+        cfg, ServeConfig(**check_fleet.SERVE),
+        run_cfg=None if mi is None else SERVE_RUN, mesh=mi, seed=seed,
+        device=device, fleet=FleetConfig(**check_fleet.FLEET),
+        resilience=ResilienceConfig(**check_fleet.RESILIENCE))
 
 
 def _row_digest(t: torch.Tensor) -> torch.Tensor:
@@ -463,8 +487,8 @@ def _serve_run(sess, requests) -> dict:
 
 
 def serve_checks(mi, device, seed: int, ref_dir) -> dict:
-    """(a) and (d) of phase 24 on this rank -> its record; raises on a
-    failed check."""
+    """(a) and (d) of phase 24 and (c) of phase 25 on this rank -> its
+    record; raises on a failed check."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rec = {"index": mi.index}
     cfg = serve_config(SERVE_LAYERS)
@@ -498,6 +522,17 @@ def serve_checks(mi, device, seed: int, ref_dir) -> dict:
         run = _serve_run(sess, serve_requests(cfg4, disagg=True))
         run["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
         rec["disagg"] = run
+        del sess
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        sess = _fleet_session(cfg4, seed, device, mi)
+        run = _serve_run(sess, check_fleet.fleet_requests(cfg4.vocab))
+        run["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        want = cfg4.num_layers * (run["decode_steps"] + 1)     # + warmup
+        _require(run["launches"] == {"K4": want, "K1": want},
+                 f"rank {mi.index} (fleet): launches {run['launches']}, "
+                 f"expected {want} each")
+        rec["fleet"] = run
         del sess
         torch.cuda.empty_cache()
     _require(not any(plain.values()), f"plain versions ran: {plain}")

@@ -29,6 +29,12 @@ layer and reports no balance).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
       --smoke --device cpu --disagg --prefill-slots 4 --decode-slots 4 \
       [--data-axis 2 --model-axis 2 --backend gloo]
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch paper-gpt-32x1.3b --smoke --device cpu --fleet \
+      --min-groups 2 --max-groups 3 --scaling-policy queue_depth \
+      --scale-check-every 4 --drain-grace-steps 2 --group-profiles 1@4 \
+      --resilience --crash-at-steps 12 --straggler-at-steps 2 \
+      --straggler-window 6
 
 Runs on the CUDA device unless ``--device cpu`` is given; weights are f32,
 random from ``--seed``, drawn on the device.  ``--replacement`` (reactive;
@@ -54,8 +60,18 @@ rank 0 prints the report.
 ``--disagg`` (with ``--prefill-slots``, ``--decode-slots``,
 ``--handoff-depth`` and, on a group, ``--prefill-profiles`` /
 ``--decode-profiles``) splits serving into a prefill fleet and a decode
-fleet joined by a bounded KV-handoff buffer.  ``--fleet`` (elastic fleets)
-and ``--resilience`` (fault injection) are not ported yet and are refused.
+fleet joined by a bounded KV-handoff buffer.
+
+Elastic fleet flags (``--fleet``, ``--scaling-policy``, ``--min-groups`` /
+``--max-groups``, ``--slots-per-group``, ``--group-profiles``,
+``--scale-check-every``, ``--drain-grace-steps``) let the session admit
+and drain device groups on the step clock (the controller's placements run
+shadow, the moves priced); resilience flags (``--resilience``,
+``--crash-at-steps``, ``--straggler-at-steps``,
+``--transfer-fail-at-steps``, ``--max-retries``, ...) arm fault injection
+and recovery on the same clock: crashes and stragglers need ``--fleet``,
+transfer failures need ``--disagg``, and ``--fleet`` with ``--disagg`` is
+refused, as the reference refuses them.
 """
 from __future__ import annotations
 
@@ -66,8 +82,9 @@ import json
 import torch
 
 from ..configs import get_config
-from ..engine import (DisaggConfig, ReplicationConfig, RuntimeConfig,
-                      ServeConfig, TelemetryConfig)
+from ..engine import (DisaggConfig, FleetConfig, ReplicationConfig,
+                      ResilienceConfig, RuntimeConfig, ServeConfig,
+                      TelemetryConfig)
 from ..serve import (ServingSession, load_trace, poisson_trace, replay_trace,
                      trace_requests)
 from . import mesh as M
@@ -102,25 +119,30 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", action="store_true",
                     help="print the full ServeReport as JSON")
-    for flag in ("--fleet", "--resilience"):
-        ap.add_argument(flag, action="store_true",
-                        help="refused: not ported yet (ROADMAP.md, Queue 1)")
     RuntimeConfig.add_cli_args(ap)
     M.add_distributed_cli_args(ap)
     ServeConfig.add_cli_args(ap)
     TelemetryConfig.add_cli_args(ap)
     ReplicationConfig.add_cli_args(ap)
     DisaggConfig.add_cli_args(ap)
+    FleetConfig.add_cli_args(ap)
+    ResilienceConfig.add_cli_args(ap)
     return ap
 
 
 def _check_args(ap: argparse.ArgumentParser, args, serve_cfg, telemetry,
-                disagg) -> None:
-    for flag, what in (("fleet", "elastic fleets"),
-                       ("resilience", "fault injection and recovery")):
-        if getattr(args, flag):
-            ap.error(f"--{flag}: the reference's {what} are not ported yet "
-                     f"(ROADMAP.md, Queue 1)")
+                disagg, fleet, resilience) -> None:
+    if fleet.enabled and disagg.enabled:
+        ap.error("--fleet and --disagg cannot be combined")
+    if resilience.enabled and not (fleet.enabled or disagg.enabled):
+        ap.error("--resilience needs --fleet (group crashes/stragglers) "
+                 "or --disagg (transfer failures)")
+    if resilience.enabled and resilience.has_group_faults \
+            and not fleet.enabled:
+        ap.error("crash/straggler faults need --fleet")
+    if resilience.enabled and resilience.has_transfer_faults \
+            and not disagg.enabled:
+        ap.error("transfer faults need --disagg")
     if telemetry.forecast_replacement and not serve_cfg.replacement:
         ap.error("--forecast-replacement selects the trigger policy of the "
                  "replacement hook; enable the hook with --replacement")
@@ -168,7 +190,7 @@ def _requests(ap, args, cfg):
 
 
 def _serve(mi, device, args, cfg, serve_cfg, run_cfg, telemetry,
-           replication, disagg, requests) -> dict:
+           replication, disagg, fleet, resilience, requests) -> dict:
     """Build the session (one device when ``mi`` is None, else this rank's
     of the group), serve ``requests`` and print on rank 0 -> the report's
     dict."""
@@ -180,7 +202,9 @@ def _serve(mi, device, args, cfg, serve_cfg, run_cfg, telemetry,
         mesh=mi, seed=args.seed, device=device,
         telemetry=telemetry if telemetry.enabled else None,
         replication=replication if replication.enabled else None,
-        disagg=disagg if disagg.enabled else None)
+        disagg=disagg if disagg.enabled else None,
+        fleet=fleet if fleet.enabled else None,
+        resilience=resilience if resilience.enabled else None)
     report = sess.run(requests)
     if mi is None or mi.index == 0:
         where = ("" if mi is None else
@@ -190,6 +214,12 @@ def _serve(mi, device, args, cfg, serve_cfg, run_cfg, telemetry,
                   f"prefill={disagg.prefill_slots} "
                   f"decode={disagg.decode_slots} "
                   f"handoff_depth={disagg.handoff_depth} "
+                  f"max_seq={serve_cfg.max_seq} traffic={args.traffic}")
+        elif fleet.enabled:
+            print(f"arch={cfg.name} device={sess.device}{where} fleet: "
+                  f"groups in [{fleet.min_groups}, {fleet.max_groups}] x "
+                  f"{fleet.slots_per_group} slots, "
+                  f"policy={fleet.scaling_policy} "
                   f"max_seq={serve_cfg.max_seq} traffic={args.traffic}")
         else:
             print(f"arch={cfg.name} device={sess.device}{where} "
@@ -216,7 +246,9 @@ def main(argv=None) -> int:
     telemetry = TelemetryConfig.from_cli_args(args)
     replication = ReplicationConfig.from_cli_args(args)
     disagg = DisaggConfig.from_cli_args(args)
-    _check_args(ap, args, serve_cfg, telemetry, disagg)
+    fleet = FleetConfig.from_cli_args(args)
+    resilience = ResilienceConfig.from_cli_args(args)
+    _check_args(ap, args, serve_cfg, telemetry, disagg, fleet, resilience)
     run_cfg = RuntimeConfig.from_cli_args(args)
 
     cfg = get_config(args.arch)
@@ -237,7 +269,7 @@ def main(argv=None) -> int:
               f"--prompt-len {args.prompt_len} + --gen {args.gen}")
     requests = _requests(ap, args, cfg)
     rest = (args, cfg, serve_cfg, run_cfg, telemetry, replication, disagg,
-            requests)
+            fleet, resilience, requests)
     if args.data_axis == 0:
         _serve(None, args.device, *rest)
         return 0

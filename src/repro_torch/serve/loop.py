@@ -49,6 +49,22 @@ rank that holds its prefill slot to the rank that holds its decode slot
 (``pack_decode_slot``, one exchange over the group).  Disabled or absent,
 the loop and its report are the co-located ones.
 
+Elastic fleets (``FleetConfig.enabled``, co-located only) admit and drain
+device groups on the step clock through a
+:class:`~repro_torch.fleet.FleetController` (one a run): the batch width is
+pinned at ``max_groups × slots_per_group`` and admission is masked down to
+the live capacity (``BatchManager.set_slot_limit``); the controller's
+placements stay shadow, as the reference's (the step's runtime is not
+rebuilt on a resize), and every resize is priced.  ``ResilienceConfig``
+(enabled) arms fault injection on the same clock: group crashes (recovered
+before admission: victims evicted and re-enqueued at the FIFO head) and
+stragglers (the mitigator deflates the group's LP weight) with a fleet,
+failed KV handoffs (retried after a capped backoff, never dropped) when
+disaggregated.  Latency-driven decisions read the step's wall time; on a
+group every rank reads the same number, the largest over the ranks, so
+every rank decides alike.  Disabled, neither changes the loop or the
+report.
+
 The step clock (one tick per step) is the virtual time base for arrivals,
 so a (trace seed, model) pair reproduces token-identical runs.
 """
@@ -63,8 +79,9 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core.placement import vanilla_placement
-from ..engine.config import (DisaggConfig, ReplicationConfig, RuntimeConfig,
-                             ServeConfig, TelemetryConfig)
+from ..engine.config import (DisaggConfig, FleetConfig, ReplicationConfig,
+                             ResilienceConfig, RuntimeConfig, ServeConfig,
+                             TelemetryConfig)
 from ..models import decoder as dec
 from ..moe.comm import gather_counts, ppermute
 from ..sharding import MeshInfo
@@ -85,7 +102,9 @@ class ServeReport:
     what the replacement hook fired in this run.  ``disagg`` (disaggregated
     runs only: fleet widths, handoff transfers, occupancy and bytes,
     per-fleet balance) is None co-located, and ``to_dict`` then leaves it
-    out."""
+    out; so do ``fleet`` (elastic-fleet runs only: the controller's
+    summary) and ``resilience`` (resilience-armed runs only: injected
+    faults and every recovery action)."""
 
     records: List[RequestRecord]
     steps: int                       # step clock at the end of the run
@@ -100,6 +119,8 @@ class ServeReport:
     migrated_bytes: int = 0
     migration_events: List[dict] = dataclasses.field(default_factory=list)
     disagg: Optional[dict] = None
+    fleet: Optional[dict] = None
+    resilience: Optional[dict] = None
 
     def _ms(self, attr: str, q: float) -> Optional[float]:
         return percentile([getattr(r, attr) * 1e3 for r in self.records], q)
@@ -132,6 +153,10 @@ class ServeReport:
         }
         if self.disagg is not None:
             out["disagg"] = self.disagg
+        if self.fleet is not None:
+            out["fleet"] = self.fleet
+        if self.resilience is not None:
+            out["resilience"] = self.resilience
         return out
 
     def summary(self) -> str:
@@ -151,6 +176,18 @@ class ServeReport:
             f"(buffer peak {dg['handoff_peak']}/{dg['handoff_depth']}, "
             f"{dg['handoff_bytes']} B staged, "
             f"{dg['prefill_stall_seq_steps']} stall seq-steps)")
+        fl, res = self.fleet, self.resilience
+        split += "" if fl is None else (
+            f"\nfleet: {fl['active_groups']}/{fl['max_groups']} groups "
+            f"active (peak {fl['peak_groups']}), {fl['admits']} admits / "
+            f"{fl['drains']} drains, {fl['migration_bytes']} B moved, "
+            f"{fl['device_steps']} device-steps")
+        split += "" if res is None else (
+            f"\nresilience: {res['crashes']} crash(es), "
+            f"{res['requeues']} requeue(s), "
+            f"{len(res['failed_requests'])} failed, "
+            f"{res['straggler_deflations']} straggler deflation(s), "
+            f"{res['transfer_failures']} transfer failure(s)")
         return (
             f"served {d['requests']} requests "
             f"({d['rejected']} rejected) in {d['steps']} steps, "
@@ -213,7 +250,11 @@ class ServingSession:
     ``serve_cfg.replacement`` (or ``replication.enabled``) builds the
     adaptive replacement hook, and ``telemetry`` with ``record`` or a
     ``trace_path`` builds the load-trace recorder, both for MoE decoders
-    only.  ``disagg`` (enabled) splits serving into two fleets."""
+    only.  ``disagg`` (enabled) splits serving into two fleets;
+    ``fleet`` (enabled) admits and drains device groups and pins the batch
+    width at its largest; ``resilience`` (enabled) injects faults into a
+    fleet (crashes, stragglers) or a disaggregated session (failed
+    handoffs), with the reference's validation."""
 
     def __init__(self, cfg: ArchConfig, serve_cfg: ServeConfig,
                  run_cfg: Optional[RuntimeConfig] = None,
@@ -223,7 +264,9 @@ class ServingSession:
                  telemetry: Optional[TelemetryConfig] = None,
                  replication: Optional[ReplicationConfig] = None,
                  disagg: Optional[DisaggConfig] = None,
-                 params_np: Optional[dict] = None):
+                 params_np: Optional[dict] = None,
+                 fleet: Optional[FleetConfig] = None,
+                 resilience: Optional[ResilienceConfig] = None):
         dec.check_servable(cfg)
         self.device = dec.require_device(device)
         self.cfg = cfg
@@ -235,6 +278,18 @@ class ServingSession:
         # a DisaggConfig with enabled=False is the co-located loop
         self.disagg = disagg if (disagg is not None
                                  and disagg.enabled) else None
+        # the same convention for the elastic fleet and for resilience
+        self.fleet_cfg = fleet if (fleet is not None
+                                   and fleet.enabled) else None
+        self.resilience = resilience if (resilience is not None
+                                         and resilience.enabled) else None
+        self._check_fleet()
+        if self.fleet_cfg is not None:
+            # resizes never change the step's width: admission is masked
+            # down to the live capacity instead
+            self.serve_cfg = serve_cfg = dataclasses.replace(
+                serve_cfg, max_batch=(self.fleet_cfg.max_groups
+                                      * self.fleet_cfg.slots_per_group))
         self.n_moe = dec.n_moe_layers(cfg)
         self.dr = None
         self.canonical: Optional[Dict[str, torch.Tensor]] = None
@@ -294,6 +349,29 @@ class ServingSession:
             dc = self._build_fleet("decode", dg.decode_slots,
                                    dg.decode_profiles, seed + 1)
             self.fleets = {"prefill": pf, "decode": dc}
+
+    def _check_fleet(self) -> None:
+        """The reference's refusals of fleet and resilience combinations."""
+        if self.fleet_cfg is not None and self.disagg is not None:
+            raise ValueError(
+                "elastic fleet serving (--fleet) and disaggregated serving "
+                "(--disagg) cannot be combined in one session")
+        rc = self.resilience
+        if rc is None:
+            return
+        if self.fleet_cfg is None and self.disagg is None:
+            raise ValueError(
+                "resilience fault injection needs a fleet to fault: "
+                "combine --resilience with --fleet (group crashes / "
+                "stragglers) or --disagg (transfer failures)")
+        if rc.has_group_faults and self.fleet_cfg is None:
+            raise ValueError(
+                "crash/straggler faults need elastic fleet serving "
+                "(--fleet): there is no device group to fail")
+        if rc.has_transfer_faults and self.disagg is None:
+            raise ValueError(
+                "handoff-transfer faults need disaggregated serving "
+                "(--disagg): there is no transfer boundary to fail")
 
     def _check_one_device(self, run_cfg, model, params_np) -> None:
         if run_cfg is not None:
@@ -360,6 +438,33 @@ class ServingSession:
                                    "table": table})
         return dr, state
 
+    def _bytes_per_expert(self) -> int:
+        """One (virtual) expert's gate, up and down projections, in the
+        model's dtype: what a migration moves an expert at."""
+        cfg = self.cfg
+        return (3 * cfg.d_model * max(cfg.moe_d_ff, 1)
+                * self.model.embed.element_size())
+
+    def _agree(self, ms: float) -> float:
+        """A wall time every rank of a group uses, the largest over the
+        ranks (one device: ``ms``), so that latency-driven decisions are
+        the same on every rank."""
+        if self.mesh is None:
+            return ms
+        t = torch.tensor([ms], dtype=torch.float64, device=self.device)
+        return float(gather_counts(t, self.mesh.pg).max())
+
+    # --------------------------------------------------- elastic fleet
+    def _make_fleet_controller(self):
+        """One :class:`~repro_torch.fleet.FleetController` a run: group
+        state and device-step accounting restart with the clock."""
+        from ..fleet import FleetController
+        cfg = self.cfg
+        n_exp = cfg.num_experts * max(cfg.etp, 1) if cfg.moe else 1
+        return FleetController(
+            self.fleet_cfg, n_exp, seed=self.seed,
+            bytes_per_expert=self._bytes_per_expert() if cfg.moe else 0)
+
     # ----------------------------------------------------- replacement
     def _make_replacement_hook(self, dr, fleet: Optional[str] = None,
                                seed: Optional[int] = None
@@ -367,7 +472,7 @@ class ServingSession:
         """The adaptive replacement hook (paper §6.4) of one runtime: on
         ``dr.engine``'s placement with its weights and slot budgets, or in
         shadow mode on the one-device placement of the E·etp (virtual)
-        experts; bytes per expert are those of its f32 gate, up and down
+        experts; bytes per expert are those of its gate, up and down
         projections."""
         want = self.serve_cfg.replacement or (
             self.replication is not None and self.replication.enabled)
@@ -381,8 +486,8 @@ class ServingSession:
         else:
             placement = vanilla_placement(
                 1, 1, cfg.num_experts * max(cfg.etp, 1))
-        bpe = 3 * cfg.d_model * max(cfg.moe_d_ff, 1) * 4
-        return ServeReplacement(placement, self.serve_cfg, bpe,
+        return ServeReplacement(placement, self.serve_cfg,
+                                self._bytes_per_expert(),
                                 seed=self.seed if seed is None else seed,
                                 telemetry=self.telemetry, weights=weights,
                                 slot_budgets=budgets,
@@ -438,6 +543,24 @@ class ServingSession:
         if self.disagg is not None:
             return self._run_disagg(requests, max_steps, warmup)
         bm = BatchManager(self.serve_cfg)
+        fleet_ctl = None
+        if self.fleet_cfg is not None:
+            from ..fleet import FleetSignals
+            fleet_ctl = self._make_fleet_controller()
+            bm.set_slot_limit(fleet_ctl.capacity)
+        # fault injection and recovery restart with the clock, like the
+        # controller
+        injector = tracker = mitigator = None
+        res_events: List[dict] = []
+        requeues = deflations = 0
+        prev_mult: Dict[int, float] = {}
+        if self.resilience is not None and fleet_ctl is not None:
+            from ..resilience import (FaultInjector, FaultPlan, RetryTracker,
+                                      StragglerMitigator, recover_from_crash)
+            injector = FaultInjector(FaultPlan.from_config(self.resilience))
+            tracker = RetryTracker(self.resilience.max_retries)
+            mitigator = StragglerMitigator(
+                self.resilience.straggler_threshold)
         for r in sorted(requests, key=lambda r: (r.arrival_step, r.req_id)):
             bm.submit(r)
         b = self.serve_cfg.max_batch
@@ -455,6 +578,7 @@ class ServingSession:
         arrival_wall: dict = {}
         step = decode_steps = processed = 0
         bal_sum, bal_steps, overflow = 0.0, 0, 0.0
+        lat_ema = 0.0                        # a step's wall, EMA (fleet SLO)
         t0 = time.perf_counter()
 
         while bm.has_work() and (max_steps is None or step < max_steps):
@@ -462,7 +586,20 @@ class ServingSession:
                 nxt_arr = bm.next_arrival_step()
                 if nxt_arr is not None and nxt_arr > step:
                     step = nxt_arr           # idle fast-forward (step clock)
-            _stamp_arrivals(bm, step, time.perf_counter() - t0, arrival_wall)
+            step_faults = None
+            if injector is not None:
+                step_faults = injector.tick(
+                    step, [g.gid for g in fleet_ctl.groups])
+                for _ in range(step_faults.crashes):
+                    # the newest group is lost before admission: its
+                    # sequences are evicted (KV gone) and re-enqueued at
+                    # the FIFO head, the experts re-packed on the
+                    # survivors (FleetInfeasibleError at the floor)
+                    rec = recover_from_crash(bm, fleet_ctl, tracker, step)
+                    requeues += len(rec.requeued)
+                    res_events.append(rec.to_event())
+            tick_wall = time.perf_counter() - t0
+            _stamp_arrivals(bm, step, tick_wall, arrival_wall)
             mask = bm.admit_ready(step)
             if mask.any():
                 state = self._reset(state, mask)
@@ -485,10 +622,45 @@ class ServingSession:
                     if table is not None:
                         self.dr, state = self._migrate(self.dr, self.model,
                                                        state, table, step)
+            if fleet_ctl is not None:
+                step_ms = self._agree(max(now - tick_wall, 0.0) * 1e3)
+                lat_ema = (step_ms if lat_ema == 0.0
+                           else 0.8 * lat_ema + 0.2 * step_ms)
+                cap = fleet_ctl.capacity
+                if fleet_ctl.observe(FleetSignals(
+                        step=step,
+                        utilization=bm.n_active / max(cap, 1),
+                        queue_depth=sum(1 for r in bm.queue
+                                        if r.arrival_step <= step),
+                        step_latency_ms=lat_ema,
+                        active_slots=bm.n_active,
+                        capacity=cap,
+                        busy_above_capacity=bm.n_active_above(cap),
+                        expert_load=eload), step):
+                    # a resize fired: admission follows the new capacity
+                    # at once; slots above it finish in place
+                    bm.set_slot_limit(fleet_ctl.capacity)
+                if mitigator is not None:
+                    deflations += self._mitigate(
+                        mitigator, fleet_ctl, step, step_ms, step_faults,
+                        prev_mult, res_events)
             step += 1
 
         wall = time.perf_counter() - t0
         self._save_recording()
+        resilience = None
+        if injector is not None:
+            resilience = {
+                "enabled": True,
+                "crashes": fleet_ctl.crashes,
+                "requeues": requeues,
+                "failed_requests": sorted(r.req_id for r in tracker.failed),
+                "straggler_deflations": deflations,
+                "transfer_failures": 0,
+                "transfer_retries": 0,
+                "injected": list(injector.events_log),
+                "events": res_events,
+            }
         return ServeReport(
             records=sorted(records, key=lambda r: r.req_id),
             steps=step,
@@ -502,7 +674,37 @@ class ServingSession:
             migrations=hook.migrations - mig0 if hook else 0,
             migrated_bytes=hook.migrated_bytes - bytes0 if hook else 0,
             migration_events=([e for e in hook.events[ev0:] if e.get("fired")]
-                              if hook else []))
+                              if hook else []),
+            fleet=fleet_ctl.summary() if fleet_ctl is not None else None,
+            resilience=resilience)
+
+    @staticmethod
+    def _mitigate(mitigator, fleet_ctl, step: int, step_ms: float,
+                  step_faults, prev_mult: dict, res_events: list) -> int:
+        """The straggler mitigation of one step: each group's latency is
+        the step's wall, inflated inside an injected straggler window; the
+        mitigator's EWMA sets each group's LP weight override.  Records a
+        deflate or restore event when a group's multiplier crosses 1;
+        updates ``prev_mult`` in place -> the deflations begun."""
+        base = max(step_ms, 1e-3)
+        factors = (step_faults.straggler_factors
+                   if step_faults is not None else {})
+        mult = mitigator.observe({g.gid: base * factors.get(g.gid, 1.0)
+                                  for g in fleet_ctl.groups})
+        began = 0
+        for gid, m in mult.items():
+            was = prev_mult.get(gid, 1.0)
+            fleet_ctl.set_weight_override(gid, m)
+            if m < 1.0 and was >= 1.0:
+                began += 1
+                res_events.append({"step": step, "kind": "straggler_deflate",
+                                   "group": gid, "multiplier": round(m, 4)})
+            elif m >= 1.0 > was:
+                res_events.append({"step": step, "kind": "straggler_restore",
+                                   "group": gid})
+        prev_mult.clear()
+        prev_mult.update(mult)
+        return began
 
     def _fresh_recording(self) -> None:
         if self.recorder is not None and len(self.recorder):
@@ -591,10 +793,18 @@ class ServingSession:
         prefill slots; step each fleet that has live work (prefill first);
         then stage completed prefills into the buffer while it has room.
         A completed prefill the full buffer cannot take stalls in its slot
-        (back-pressure, never loss)."""
+        (back-pressure, never loss).  With resilience armed, a handoff
+        attempt may fail: the staged KV stays in the buffer and retries
+        after a capped exponential backoff, never dropped."""
         dg = self.disagg
         pf, dc = self.fleets["prefill"], self.fleets["decode"]
         buf = HandoffBuffer(dg.handoff_depth)
+        injector = None
+        res_events: List[dict] = []
+        transfer_failures = 0
+        if self.resilience is not None:
+            from ..resilience import FaultInjector, FaultPlan, transfer_backoff
+            injector = FaultInjector(FaultPlan.from_config(self.resilience))
         for f in (pf, dc):
             f.bm = BatchManager(f.serve_cfg, role=f.name)
             f.state = self._init_state(f.serve_cfg.max_batch, f.dr)
@@ -628,6 +838,26 @@ class ServingSession:
             # slot is free and the KV reservation fits
             while buf.peek() is not None:
                 item = buf.peek()
+                if item.next_attempt_step > step:
+                    break           # backing off after a failed transfer:
+                                    # head-of-line blocks (back-pressure)
+                if injector is not None:
+                    if not dc.bm.can_admit_transfer(item.seq):
+                        break       # no attempt made: no fault verdict
+                    if injector.transfer_fails(step):
+                        # failed in flight: the staged KV is intact
+                        item.retries += 1
+                        transfer_failures += 1
+                        item.next_attempt_step = step + transfer_backoff(
+                            item.retries,
+                            self.resilience.retry_backoff_steps,
+                            self.resilience.max_transfer_retries)
+                        res_events.append(
+                            {"step": step, "kind": "transfer_fail",
+                             "req": item.seq.request.req_id,
+                             "retries": item.retries,
+                             "next_attempt_step": item.next_attempt_step})
+                        break
                 slot = dc.bm.admit_transfer(item.seq, step)
                 if slot is None:
                     break                   # decode fleet full: stay staged
@@ -711,7 +941,19 @@ class ServingSession:
                                     else round(pf.balance, 4)),
                 "decode_balance": (None if dc.balance is None
                                    else round(dc.balance, 4)),
-            })
+            },
+            resilience=(None if injector is None else {
+                "enabled": True,
+                "crashes": 0,
+                "requeues": 0,
+                "failed_requests": [],
+                "straggler_deflations": 0,
+                "transfer_failures": transfer_failures,
+                "transfer_retries": sum(1 for e in res_events
+                                        if e["retries"] > 1),
+                "injected": list(injector.events_log),
+                "events": res_events,
+            }))
 
 
 def _stamp_arrivals(bm: BatchManager, step: int, now: float,

@@ -437,8 +437,8 @@ def test_serve_cli_disagg_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--fleet"], "--fleet: the reference's elastic fleets are not ported"),
-    (["--resilience"], "--resilience: the reference's fault injection"),
+    (["--fleet", "--disagg"], "--fleet and --disagg cannot be combined"),
+    (["--resilience"], "--resilience needs --fleet"),
     (["--capacity-factor", "4"], "--capacity-factor need --data-axis"),
     (["--disagg", "--decode-profiles", "2,1"], "need --data-axis"),
     (["--data-axis", "2", "--dtype", "bfloat16"], "serving runs in float32")],

@@ -1265,3 +1265,81 @@ def _leaves(v):
     if isinstance(v, torch.Tensor):
         return [v]
     return [a for c in v for a in c]
+
+
+def _fleet_held(num_experts=16, seed=0):
+    """Every placement a fleet controller holds through an admit, a
+    straggler's deflation, a drain (a zero-budget device) and a crash, with
+    its weights."""
+    from repro_torch.engine import FleetConfig
+    from repro_torch.fleet import FleetSignals
+    from repro_torch.launch.check_fleet import RecordingController
+    ctl = RecordingController(
+        FleetConfig(enabled=True, min_groups=2, max_groups=3,
+                    slots_per_group=2, group_profiles=f"1@{num_experts}",
+                    scaling_policy="queue_depth", scale_check_every=2,
+                    drain_grace_steps=3), num_experts, seed=seed)
+    rng = np.random.default_rng(seed)
+    load = lambda: rng.integers(0, 90, num_experts).astype(float)  # noqa
+    ctl.observe(FleetSignals(step=2, utilization=1.0, queue_depth=4,
+                             active_slots=4, capacity=ctl.capacity,
+                             expert_load=load()), 2)
+    ctl.set_weight_override(1, 0.4)
+    ctl.observe(FleetSignals(step=4, capacity=ctl.capacity,
+                             busy_above_capacity=1, expert_load=load()), 4)
+    ctl.fail_group(0, 5)
+    return ctl.held
+
+
+@pytest.mark.gpu
+def test_cuda_k4_on_fleet_placements_matches_plain_version():
+    """K4 on every placement an elastic fleet holds (a draining device
+    with no replica, a deflated straggler's weight), warm-started over
+    three load vectors split over the devices: bit for bit the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (K4 is a CUDA kernel)")
+    from repro_torch.engine import DeviceProfile, MicroEPEngine
+    from repro_torch.launch.check_fleet import split_counts
+    held = _fleet_held()
+    assert any((p.slots_per_device() == 0).any() for _, p, _ in held)
+    assert any(w is not None for _, _, w in held)
+    rng = np.random.default_rng(1)
+    for _, placement, w in held:
+        d = placement.num_devices
+        prof = None if w is None else [DeviceProfile(weight=float(x))
+                                       for x in w]
+        card, cpu = (MicroEPEngine.build(
+            placement.num_experts, (1, d), placement=placement,
+            device_profiles=prof, device=dev) for dev in ("cuda", "cpu"))
+        batches = [split_counts(rng.integers(0, 300, 16), d)
+                   for _ in range(3)]
+        time_k4.check_engines(card, cpu, batches, True, "fleet placement")
+
+
+@pytest.mark.gpu
+def test_cuda_reshard_is_a_device_gather():
+    """``reshard_params`` on CUDA tensors (a plain and a scan-stacked
+    expert leaf) stays on the card and equals the direct gather bit for
+    bit; back again gives the original bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.resilience import reshard_params
+    held = _fleet_held()
+    big = max((p for _, p, _ in held), key=lambda p: p.num_devices)
+    small = min((p for _, p, _ in held), key=lambda p: p.num_devices)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    canon = torch.randn(2, 16, 24, 40, generator=g, device="cuda")
+
+    def working(p):
+        ids = torch.as_tensor(np.maximum(p.table, 0).ravel(), device="cuda")
+        return canon[:, ids].reshape((2,) + p.table.shape + (24, 40))
+
+    tree = {"stack": working(big), "one": working(big)[0]}
+    out = reshard_params(tree, big, small)
+    for k, want in (("stack", working(small)), ("one", working(small)[0])):
+        assert out[k].is_cuda and torch.equal(out[k], want)
+    back = reshard_params(out, small, big)
+    assert torch.equal(back["stack"], tree["stack"])
+    assert torch.equal(back["one"], tree["one"])

@@ -8,9 +8,11 @@ olmoe-1b-7b smoke from the reference's weights, latin placement (2
 replicas an expert), 8 slots (2 a rank), capacity factor 4: once without
 the replacement hook, once with the reactive hook set to fire (check
 every 4 steps, threshold 1.0) and once disaggregated (4 prefill and 4
-decode slots, handoff depth 2); then trains 4 steps of 8 × 16 tokens
-without and with ``--telemetry-record --prewarm --replication`` (check
-every 2, gate 0, threshold 1.0)."""
+decode slots, handoff depth 2) and once with an elastic fleet that loses
+a group (the reference's crash-and-straggler config, on a fake clock);
+then trains 4 steps of 8 × 16 tokens without and with
+``--telemetry-record --prewarm --replication`` (check every 2, gate 0,
+threshold 1.0)."""
 import argparse
 
 import numpy as np
@@ -28,7 +30,9 @@ from repro_torch.launch.mesh import start_group
 from repro_torch.moe.sync import build_sync_plan
 from repro_torch.core.placement import Placement
 from repro_torch.serve import replay_trace as torch_replay_trace
-from repro_torch.engine import DisaggConfig, ServeConfig
+from repro_torch.engine import (DisaggConfig, FleetConfig, ResilienceConfig,
+                                ServeConfig)
+from repro_torch.launch.check_fleet import fake_clock
 from repro_torch.serve import ServingSession
 from torch_cases import canonical, plain, port_config, reference_params
 
@@ -50,6 +54,13 @@ REPLICATION = dict(enabled=True, check_every=2, threshold=1.0,
 DISAGG = dict(enabled=True, prefill_slots=4, decode_slots=4,
               handoff_depth=2)
 LOSS_RTOL = 1e-5    # a migration moves rows between replicas, not values
+# the reference's crash (step 12) and straggler (step 2) fleet config
+FLEET = dict(enabled=True, min_groups=2, max_groups=3, slots_per_group=2,
+             scale_check_every=4, drain_grace_steps=2,
+             scaling_policy="queue_depth", group_profiles="1@4")
+RESILIENCE = dict(enabled=True, crash_steps=(12,), straggler_steps=(2,),
+                  straggler_window=6, max_retries=3)
+FLEET_ARRIVALS = [(0, 4, 8)] * 8 + [(40, 3, 4)] * 2
 
 
 def _step_fields(report: dict) -> dict:
@@ -69,7 +80,9 @@ def group():
     params_np = reference_params(ref_cfg)
     run = start_group(C.serve_group_rank, (
         cfg, params_np, torch_replay_trace(ARRIVALS, cfg.vocab, seed=11),
-        SERVE, CF, DISAGG, (TRAIN_ARGS, TELEMETRY, REPLICATION)), 2, 2)
+        SERVE, CF, DISAGG, (TRAIN_ARGS, TELEMETRY, REPLICATION),
+        (FLEET, RESILIENCE, torch_replay_trace(FLEET_ARRIVALS, cfg.vocab,
+                                               seed=12))), 2, 2)
     ref = RefServingSession(ref_cfg, RefServeConfig(**SERVE), seed=0)
     ref_rep = ref.run(replay_trace(ARRIVALS, ref_cfg.vocab, seed=11))
     ranks = run.results()
@@ -231,3 +244,43 @@ def test_disagg_group_matches_one_device(group):
         assert r["disagg"]["tokens"] == [x.tokens for x in one.records]
         assert no_balance(canonical(r["disagg"]["report"])) == want
         assert r["disagg"]["report"]["mean_balance"] >= 1.0
+
+
+def test_fleet_crash_on_group_matches_one_device(group):
+    """A fleet that admits, loses its newest group at step 12 and deflates
+    a straggler serves, on every rank of the 2 × 2 group, the one-device
+    port's tokens with its report (``fleet`` and ``resilience`` blocks
+    included; balance aside), both on a fake clock."""
+    cfg, params_np, _, ranks = group
+    sess = ServingSession(cfg, ServeConfig(**SERVE), device="cpu",
+                          params_np=params_np,
+                          fleet=FleetConfig(**FLEET),
+                          resilience=ResilienceConfig(**RESILIENCE))
+    with fake_clock():
+        one = sess.run(torch_replay_trace(FLEET_ARRIVALS, cfg.vocab,
+                                          seed=12))
+    want = canonical(one.to_dict())
+    want.pop("mean_balance")
+    kinds = {e["kind"] for e in want["resilience"]["events"]}
+    assert {"crash", "straggler_deflate", "straggler_restore"} <= kinds
+    assert want["fleet"]["admits"] >= 1 and want["fleet"]["crashes"] == 1
+    for r in ranks:
+        got = canonical(r["fleet"]["report"])
+        got.pop("mean_balance")
+        assert r["fleet"]["tokens"] == [x.tokens for x in one.records]
+        assert got == want
+
+
+def test_fleet_ranks_agree_on_their_own_clocks(group):
+    """On each rank's own wall clock, which differ, every rank takes the
+    same admit, drain and straggler decisions (they read the ranks'
+    largest step wall): equal ``fleet`` and ``resilience`` blocks and the
+    fake clock's tokens."""
+    _, _, _, ranks = group
+    first = ranks[0]["fleet_wall"]["report"]
+    assert first["resilience"]["straggler_deflations"] >= 1
+    for r in ranks:
+        got = r["fleet_wall"]["report"]
+        assert got["fleet"] == first["fleet"]
+        assert got["resilience"] == first["resilience"]
+        assert r["fleet_wall"]["tokens"] == r["fleet"]["tokens"]

@@ -195,14 +195,18 @@ def _session_out(sess, rep, mi) -> dict:
 
 
 def serve_group_rank(mi, device, cfg, params_np, requests, serve_kw, cf,
-                     disagg_kw, train_args):
+                     disagg_kw, train_args, fleet_case):
     """Rank side of ``test_torch_serve_group``: the 2 × 2 group session
-    without and with the replacement hook, disaggregated, then
-    ``launch.train``'s group loop without and with telemetry, pre-warm and
-    replication."""
-    from repro_torch.engine import (DisaggConfig, ReplicationConfig,
+    without and with the replacement hook, disaggregated, with a fleet
+    that loses a group (``fleet_case``: the fleet and resilience configs'
+    fields and the requests, on a fake clock), then ``launch.train``'s
+    group loop without and with telemetry, pre-warm and replication.  The
+    fleet runs twice: on a fake clock, and on each rank's wall clock."""
+    from repro_torch.engine import (DisaggConfig, FleetConfig,
+                                    ReplicationConfig, ResilienceConfig,
                                     ServeConfig, TelemetryConfig)
     from repro_torch.launch import train as train_cli
+    from repro_torch.launch.check_fleet import fake_clock
     from repro_torch.serve import ServingSession
     torch.set_num_threads(1)
     run_cfg = RuntimeConfig(capacity_factor=cf)
@@ -218,6 +222,15 @@ def serve_group_rank(mi, device, cfg, params_np, requests, serve_kw, cf,
                           mesh=mi, device="cpu", params_np=params_np,
                           disagg=DisaggConfig(**disagg_kw))
     out["disagg"] = _session_out(sess, sess.run(requests), mi)
+    fleet_kw, resilience_kw, fleet_requests = fleet_case
+    sess = ServingSession(cfg, ServeConfig(**serve_kw), run_cfg=run_cfg,
+                          mesh=mi, device="cpu", params_np=params_np,
+                          fleet=FleetConfig(**fleet_kw),
+                          resilience=ResilienceConfig(**resilience_kw))
+    with fake_clock():
+        out["fleet"] = _session_out(sess, sess.run(fleet_requests), mi)
+    # each rank's own wall clock: the decisions read the ranks' largest
+    out["fleet_wall"] = _session_out(sess, sess.run(fleet_requests), mi)
     args, telemetry, replication = train_args
     for name, tel, rep in (("train", None, None),
                            ("train_hooks", TelemetryConfig(**telemetry),
